@@ -1,0 +1,34 @@
+"""Device and precision policy shared by the port's modules."""
+
+from __future__ import annotations
+
+import torch
+
+
+def set_f32_precision() -> None:
+    """Keep float32 math in float32 on the GPU.
+
+    Epipolar geometry in f32 needs true f32 products: TF32 keeps about
+    three decimal digits, enough to move two-view pose estimates
+    visibly. Both switches are set because cuDNN allows TF32 by default
+    (the matmul switch alone leaves convolutions in TF32).
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def kernel_wanted(x: torch.Tensor, use_kernel: bool | None) -> bool:
+    """Resolve a wrapper's ``use_kernel`` switch against its input.
+
+    ``None`` picks the hand-written kernel for a CUDA tensor and the plain
+    PyTorch version for a CPU tensor (the counterpart of the reference's
+    ``fast._use_pallas_default``). ``True`` on a CPU tensor raises: the
+    kernels exist only for the GPU and nothing falls back.
+    """
+    if use_kernel is None:
+        return x.is_cuda
+    if use_kernel and not x.is_cuda:
+        raise ValueError(
+            f"use_kernel=True needs a CUDA tensor, got one on {x.device}"
+        )
+    return bool(use_kernel)

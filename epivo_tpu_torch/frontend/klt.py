@@ -1,0 +1,376 @@
+"""Pyramidal Lucas-Kanade optical flow, batched over keypoints (port of
+``epivo_tpu/frontend/klt.py``).
+
+Per pyramid level, each keypoint gets one integer-aligned S x S window
+(S = win + 2 * margin + 1) from the source and one from the target image
+(:func:`extract_windows`, the CUDA kernel ``csrc/klt_extract.cu`` on a
+CUDA tensor); the template and its Scharr gradients are sampled from the
+source window, and the LK iterations run inside the target window
+(:func:`lk_iterate`, the CUDA kernel ``csrc/klt_lk.cu``). Window origins
+clamp at image borders, and the effective template centre is tracked
+explicitly so clamping never biases the flow.
+
+Layout is keypoint-major ([K, S, S]) with direct bilinear gathers; the
+reference's lane-major layout and its shift-network samplers exist only
+for the TPU and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from epivo_tpu_torch import _kernels
+from epivo_tpu_torch._device import kernel_wanted
+from epivo_tpu_torch.frontend import image as imops
+
+# Launches of the CUDA kernels made by this process (never by the plain path).
+EXTRACT_LAUNCHES = 0
+LK_LAUNCHES = 0
+
+
+class FlowResult(NamedTuple):
+    xy: torch.Tensor  # [K, 2] tracked positions in the target image
+    status: torch.Tensor  # [K] bool
+    err: torch.Tensor  # [K] mean absolute patch residual
+
+
+# ---------------------------------------------------------------------------
+# Window extraction (kernel B2)
+# ---------------------------------------------------------------------------
+
+
+def extract_windows_plain(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                          size: int) -> torch.Tensor:
+    """[B, H, W] image, [B, K] integer origins -> [B, K, size, size] windows
+    ``img[b, oy:oy+size, ox:ox+size]`` (plain version, a gather)."""
+    r = torch.arange(size, device=img.device)
+    rows = (oy.long()[..., None] + r)[..., :, None]  # [B, K, S, 1]
+    cols = (ox.long()[..., None] + r)[..., None, :]  # [B, K, 1, S]
+    b = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+    return img[b, rows, cols]
+
+
+def extract_windows_kernel(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                           size: int) -> torch.Tensor:
+    """Window extraction by the CUDA kernel; same contract as
+    :func:`extract_windows_plain`. Origins must lie in
+    [0, H - size] x [0, W - size]; the wrapper raises otherwise."""
+    global EXTRACT_LAUNCHES
+    if not img.is_cuda:
+        raise ValueError("extract_windows_kernel needs a CUDA tensor")
+    if img.dtype != torch.float32 or img.dim() != 3:
+        raise ValueError(f"expected float32 [B, H, W], got {img.dtype} "
+                         f"{tuple(img.shape)}")
+    B, H, W = img.shape
+    S = int(size)
+    if oy.shape != ox.shape or oy.dim() != 2 or oy.shape[0] != B:
+        raise ValueError(f"origins must be [B, K] with B = {B}, got "
+                         f"{tuple(oy.shape)} and {tuple(ox.shape)}")
+    if not (0 < S <= min(H, W)):
+        raise ValueError(f"window size {S} does not fit a {H}x{W} image")
+    if oy.device != img.device or ox.device != img.device:
+        raise ValueError("origins must be on the image's device")
+    if bool(((oy < 0) | (oy > H - S) | (ox < 0) | (ox > W - S)).any()):
+        raise ValueError("window origins out of bounds")
+    K = oy.shape[1]
+    img = img.contiguous()
+    oy32 = oy.to(torch.int32).contiguous()
+    ox32 = ox.to(torch.int32).contiguous()
+    out = torch.empty((B, K, S, S), dtype=img.dtype, device=img.device)
+    if out.numel() == 0:
+        return out
+    status = _kernels.lib().epivo_extract_windows(
+        img.data_ptr(), oy32.data_ptr(), ox32.data_ptr(), out.data_ptr(),
+        B, H, W, K, S, _kernels.stream_of(img))
+    _kernels.check(status, "epivo_extract_windows")
+    EXTRACT_LAUNCHES += 1
+    return out
+
+
+def extract_windows(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                    size: int, use_kernel: bool | None = None) -> torch.Tensor:
+    """[B, K] windows of [B, H, W] images: the kernel on a CUDA tensor, the
+    plain gather on a CPU tensor (``use_kernel`` overrides)."""
+    if kernel_wanted(img, use_kernel):
+        return extract_windows_kernel(img, oy, ox, size)
+    return extract_windows_plain(img, oy, ox, size)
+
+
+def _extract_windows(img: torch.Tensor, centers: torch.Tensor, size: int,
+                     use_kernel: bool | None = None):
+    """[K] integer-aligned size x size windows around ``centers`` of one
+    [H, W] image. Returns (windows [K, size, size], origins [K, 2] (x, y)):
+    the actual clamped top-left corners, which callers must use."""
+    H, W = img.shape
+    r = size // 2
+    c_int = torch.round(centers).to(torch.int32)  # half to even, as jnp.round
+    ox = torch.clamp(c_int[:, 0] - r, 0, W - size)
+    oy = torch.clamp(c_int[:, 1] - r, 0, H - size)
+    wins = extract_windows(img[None], oy[None], ox[None], size, use_kernel)[0]
+    return wins, torch.stack([ox, oy], dim=-1).to(img.dtype)
+
+
+# Scharr gradients over a stack of windows [K, S, S] (edge padded): the
+# image operator works on any leading axes.
+_grad_batch = imops.scharr_gradients
+
+
+def _sample_patches(wins: torch.Tensor, q: torch.Tensor, win: int) -> torch.Tensor:
+    """Bilinear win x win patches from [K, S, S] windows at top-left corners
+    q [K, 2] (x, y): a direct gather of (win + 1)^2 taps per keypoint and
+    the reference's four-tap blend, in its order of terms."""
+    K, S, _ = wins.shape
+    hi = S - win - 1e-3
+    qx = torch.clamp(q[:, 0], 0.0, hi)
+    qy = torch.clamp(q[:, 1], 0.0, hi)
+    flx, fly = torch.floor(qx), torch.floor(qy)
+    fx = (qx - flx)[:, None, None]
+    fy = (qy - fly)[:, None, None]
+    r = torch.arange(win + 1, device=wins.device)
+    rows = (fly.long()[:, None] + r)[:, :, None]  # [K, win+1, 1]
+    cols = (flx.long()[:, None] + r)[:, None, :]  # [K, 1, win+1]
+    kk = torch.arange(K, device=wins.device)[:, None, None]
+    acc = wins[kk, rows, cols]  # [K, win+1, win+1]
+    return (
+        acc[:, :win, :win] * (1 - fx) * (1 - fy)
+        + acc[:, :win, 1:] * fx * (1 - fy)
+        + acc[:, 1:, :win] * (1 - fx) * fy
+        + acc[:, 1:, 1:] * fx * fy
+    )
+
+
+# ---------------------------------------------------------------------------
+# LK iterations (kernel B3)
+# ---------------------------------------------------------------------------
+
+
+def lk_iterate_plain(tgt_wins: torch.Tensor, T: torch.Tensor, Ix: torch.Tensor,
+                     Iy: torch.Tensor, q0: torch.Tensor, win: int, iters: int,
+                     eps: float):
+    """``iters`` LK steps for all keypoints (plain version).
+
+    tgt_wins [K, S, S]; T/Ix/Iy [K, win, win] (template and gradients
+    sampled at the template position); q0 [K, 2] top-left corners (x, y)
+    in window coordinates. Returns (q [K, 2], err [K] = mean |P - T|).
+    """
+    S = tgt_wins.shape[-1]
+    hi = S - win - 1 - 1e-3
+    Gxx = torch.sum(Ix * Ix, dim=(1, 2))
+    Gxy = torch.sum(Ix * Iy, dim=(1, 2))
+    Gyy = torch.sum(Iy * Iy, dim=(1, 2))
+    det = Gxx * Gyy - Gxy * Gxy
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+
+    q = torch.clamp(q0, 0.0, hi)
+    done = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    for _ in range(iters):
+        dI = _sample_patches(tgt_wins, q, win) - T
+        bx = torch.sum(dI * Ix, dim=(1, 2))
+        by = torch.sum(dI * Iy, dim=(1, 2))
+        dx = -(Gyy * bx - Gxy * by) * inv_det
+        dy = -(-Gxy * bx + Gxx * by) * inv_det
+        step = torch.stack([dx, dy], dim=-1)
+        q = torch.where(done[:, None], q, torch.clamp(q + step, 0.0, hi))
+        done = done | (torch.linalg.norm(step, dim=-1) < eps)
+    err = torch.mean(torch.abs(_sample_patches(tgt_wins, q, win) - T), dim=(1, 2))
+    return q, err
+
+
+def lk_iterate_kernel(tgt_wins: torch.Tensor, T: torch.Tensor, Ix: torch.Tensor,
+                      Iy: torch.Tensor, q0: torch.Tensor, win: int, iters: int,
+                      eps: float):
+    """LK iterations by the CUDA kernel; same contract as
+    :func:`lk_iterate_plain`, which it matches to a tolerance (its sums run
+    in another order)."""
+    global LK_LAUNCHES
+    if not tgt_wins.is_cuda:
+        raise ValueError("lk_iterate_kernel needs a CUDA tensor")
+    args = (tgt_wins, T, Ix, Iy, q0)
+    if any(a.dtype != torch.float32 or a.device != tgt_wins.device for a in args):
+        raise ValueError("lk_iterate_kernel needs float32 tensors on one device")
+    K, S, S2 = tgt_wins.shape
+    shape_pw = (K, win, win)
+    if (S2 != S or T.shape != shape_pw or Ix.shape != shape_pw
+            or Iy.shape != shape_pw or q0.shape != (K, 2)):
+        raise ValueError(
+            f"expected tgt [K, S, S], T/Ix/Iy [K, {win}, {win}], q0 [K, 2]; "
+            f"got {tuple(tgt_wins.shape)}, {tuple(T.shape)}, {tuple(Ix.shape)}, "
+            f"{tuple(Iy.shape)}, {tuple(q0.shape)}")
+    if S < win + 2:
+        raise ValueError(f"window {S} too small for a {win}x{win} patch")
+    if (S * S + 3 * win * win) * 4 > 48 * 1024:
+        raise ValueError(f"S={S}, win={win} exceed the kernel's 48 KB of "
+                         "shared memory")
+    tgt_wins, T, Ix, Iy, q0 = (a.contiguous() for a in args)
+    q = torch.empty((K, 2), dtype=torch.float32, device=tgt_wins.device)
+    err = torch.empty(K, dtype=torch.float32, device=tgt_wins.device)
+    if K == 0:
+        return q, err
+    hi = S - win - 1 - 1e-3
+    status = _kernels.lib().epivo_lk_iterate(
+        tgt_wins.data_ptr(), T.data_ptr(), Ix.data_ptr(), Iy.data_ptr(),
+        q0.data_ptr(), q.data_ptr(), err.data_ptr(), K, S, int(win),
+        int(iters), float(eps), float(hi), _kernels.stream_of(tgt_wins))
+    _kernels.check(status, "epivo_lk_iterate")
+    LK_LAUNCHES += 1
+    return q, err
+
+
+def lk_iterate(tgt_wins, T, Ix, Iy, q0, win: int, iters: int, eps: float,
+               use_kernel: bool | None = None):
+    """LK iterations: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor (``use_kernel`` overrides)."""
+    if kernel_wanted(tgt_wins, use_kernel):
+        return lk_iterate_kernel(tgt_wins, T, Ix, Iy, q0, win, iters, eps)
+    return lk_iterate_plain(tgt_wins, T, Ix, Iy, q0, win, iters, eps)
+
+
+# ---------------------------------------------------------------------------
+# One level and the pyramid
+# ---------------------------------------------------------------------------
+
+
+def _template(src: torch.Tensor, pt_src: torch.Tensor, win: int, S: int,
+              use_kernel: bool | None = None):
+    """Template T and gradients Ix/Iy [K, win, win] at ``pt_src`` [K, 2] from
+    one source window each, and the effective (clamp-aware) template
+    centres c_eff [K, 2]."""
+    hi = S - win - 1 - 1e-3
+    src_wins, o_s = _extract_windows(src, pt_src, S, use_kernel)
+    gx, gy = _grad_batch(src_wins)
+    q_s = torch.clamp(pt_src - o_s - (win - 1) / 2.0, 0.0, hi)
+    c_eff = o_s + q_s + (win - 1) / 2.0
+    T = _sample_patches(src_wins, q_s, win)
+    Ix = _sample_patches(gx, q_s, win)
+    Iy = _sample_patches(gy, q_s, win)
+    return T, Ix, Iy, c_eff
+
+
+def _target(tgt: torch.Tensor, g: torch.Tensor, win: int, S: int,
+            use_kernel: bool | None = None):
+    """Target windows [K, S, S] around the guesses g [K, 2], their origins
+    [K, 2] and the starting corners q0 [K, 2] inside them."""
+    hi = S - win - 1 - 1e-3
+    tgt_wins, o_t = _extract_windows(tgt, g, S, use_kernel)
+    q0 = torch.clamp(g - o_t - (win - 1) / 2.0, 0.0, hi)
+    return tgt_wins, o_t, q0
+
+
+def _track_level(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    pt_src: torch.Tensor,
+    guess: torch.Tensor,
+    win: int,
+    margin: int,
+    iters: int,
+    eps: float,
+    min_eig: float,
+    n_chunks: int = 2,
+    use_kernel: bool | None = None,
+):
+    """One pyramid level of LK for all points at once.
+
+    pt_src / guess: [K, 2] positions at this level's scale. Returns
+    (new_guess [K, 2], ok [K], err [K]). The target window is re-centred
+    between ``n_chunks`` chunks of iterations.
+    """
+    S = win + 2 * margin + 1
+    T, Ix, Iy, c_eff = _template(src, pt_src, win, S, use_kernel)
+
+    Gxx = torch.sum(Ix * Ix, dim=(1, 2))
+    Gxy = torch.sum(Ix * Iy, dim=(1, 2))
+    Gyy = torch.sum(Iy * Iy, dim=(1, 2))
+    det = Gxx * Gyy - Gxy * Gxy
+    trace = Gxx + Gyy
+    min_ev = (trace - torch.sqrt(torch.clamp(trace * trace - 4 * det, min=0.0))) / 2.0
+    ok = min_ev / (win * win) > min_eig
+
+    chunk_iters = max(1, iters // n_chunks)
+    g = guess + (c_eff - pt_src)  # track the effective template centre
+    err = None
+    for _ in range(n_chunks):
+        tgt_wins, o_t, q0 = _target(tgt, g, win, S, use_kernel)
+        q_fin, err = lk_iterate(tgt_wins, T, Ix, Iy, q0, win, chunk_iters, eps,
+                                use_kernel)
+        g = q_fin + o_t + (win - 1) / 2.0
+    # Position of pt_src's content = pt_src + measured template flow.
+    return pt_src + (g - c_eff), ok, err
+
+
+def default_margins(levels: int) -> list[int]:
+    """Margin 12 at the top level (which absorbs the full motion), 6 below."""
+    margin = [6] * levels
+    margin[levels - 1] = 12
+    return margin
+
+
+def track(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    pts: torch.Tensor,
+    valid: torch.Tensor | None = None,
+    win: int = 21,
+    levels: int = 4,
+    iters: int = 30,
+    eps: float = 0.01,
+    min_eig: float = 1e-4,
+    max_err: float = 1e9,
+    margin: int | tuple[int, ...] | list[int] | None = None,
+    n_chunks: int = 1,
+    use_kernel: bool | None = None,
+) -> FlowResult:
+    """Track points from the src to the tgt image. pts [K, 2] (x, y) pixels.
+
+    OpenCV-default-equivalent configuration: winSize 21, 4 levels, eps
+    0.01. ``margin`` bounds the per-chunk displacement per level: an int or
+    a per-level sequence (entry 0 = full resolution); the default is 12 at
+    the top level and 6 below. ``use_kernel=None`` runs the CUDA kernels
+    for CUDA tensors and the plain versions for CPU tensors.
+    """
+    if margin is None:
+        margin = default_margins(levels)
+    elif isinstance(margin, int):
+        margin = [margin] * levels
+    margin = list(margin)
+    if len(margin) != levels:
+        raise ValueError(f"need {levels} margins, got {len(margin)}")
+
+    pyr_s = imops.build_pyramid(src, levels)
+    pyr_t = imops.build_pyramid(tgt, levels)
+
+    # Small top levels must still fit the window: pad bottom/right with
+    # edge replication (coordinates are unaffected).
+    S_max = win + 2 * max(margin) + 1
+
+    def pad_to_window(im):
+        ph = max(0, S_max - im.shape[0])
+        pw = max(0, S_max - im.shape[1])
+        if ph or pw:
+            im = imops.edge_pad(im, 0, ph, 0, pw)
+        return im
+
+    pyr_s = [pad_to_window(im) for im in pyr_s]
+    pyr_t = [pad_to_window(im) for im in pyr_t]
+
+    g = pts / 2.0 ** (levels - 1)
+    ok = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    err = torch.zeros(pts.shape[0], dtype=pts.dtype, device=pts.device)
+    for lvl in range(levels - 1, -1, -1):
+        p_lvl = pts / 2.0**lvl
+        g, ok_lvl, err = _track_level(
+            pyr_s[lvl], pyr_t[lvl], p_lvl, g, win, margin[lvl], iters, eps,
+            min_eig, n_chunks=n_chunks, use_kernel=use_kernel,
+        )
+        ok = ok & ok_lvl
+        if lvl > 0:
+            g = g * 2.0
+
+    H, W = tgt.shape
+    inb = (g[:, 0] >= 0) & (g[:, 0] <= W - 1) & (g[:, 1] >= 0) & (g[:, 1] <= H - 1)
+    status = ok & inb & (err < max_err)
+    if valid is not None:
+        status = status & valid
+    return FlowResult(xy=g, status=status, err=err)

@@ -1,0 +1,149 @@
+"""Two-view visual odometry step (port of ``epivo_tpu/pipeline/vo.py``).
+
+    images -> FAST -> KLT -> RANSAC essential -> (refine E) -> recoverPose
+           -> fallbacks -> top-K cheirality-filtered matches -> LM refine
+           -> revert-on-high-uncertainty -> relative pose + triangulated cloud
+
+Every step after image upload runs on the images' device with static
+shapes; the only host syncs are the kernels' argument checks.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from epivo_tpu_torch import ransac as ransac_mod
+from epivo_tpu_torch.frontend import fast, klt
+from epivo_tpu_torch.geometry import camera as cam, epipolar, essential, se3
+from epivo_tpu_torch.optim import lm
+from epivo_tpu_torch.pipeline.config import VOConfig
+
+
+class VOStepResult(NamedTuple):
+    T: torch.Tensor  # [4, 4] refined relative pose (source -> target)
+    n_tracked: torch.Tensor  # [] int32
+    n_inliers: torch.Tensor  # [] int32
+    r_norm: torch.Tensor  # [] LM residual norm
+    reverted: torch.Tensor  # [] bool: LM result rejected, E-pose kept
+    points: torch.Tensor  # [K, 3] triangulated points (source frame)
+    points_valid: torch.Tensor  # [K] bool (tracked & inlier & triangulable)
+    matches_src: torch.Tensor  # [K, 2] pixel coords in source image
+    matches_tgt: torch.Tensor  # [K, 2]
+    inlier_mask: torch.Tensor  # [K] bool: tracked & epipolar-inlier
+
+
+def _unit_translation(T: torch.Tensor) -> torch.Tensor:
+    """Normalize the pose's translation to unit norm (a zero translation is
+    left untouched)."""
+    t = T[..., :3, 3]
+    n = torch.linalg.norm(t, dim=-1, keepdim=True)
+    safe = torch.where(n > 1e-12, n, 1.0)
+    out = T.clone()
+    out[..., :3, 3] = t / safe
+    return out
+
+
+def _select_top(mask: torch.Tensor, k: int):
+    """Indices of the first k True lanes (score-ordered input assumed);
+    returns (idx [k], valid [k])."""
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)  # True first
+    idx = order[:k]
+    return idx, mask[idx]
+
+
+def vo_step(img0: torch.Tensor, img1: torch.Tensor,
+            generator: torch.Generator | None, config: VOConfig,
+            ransac_samples: torch.Tensor | None = None,
+            use_kernel: bool | None = None) -> VOStepResult:
+    """One two-view VO step. img0/img1: [H, W] float32 grayscale.
+
+    ``generator`` draws the RANSAC samples; ``ransac_samples`` (a LongTensor
+    [n_hyp, 8]) replaces that draw. ``use_kernel=None`` runs the CUDA
+    kernels for CUDA images and the plain versions for CPU images.
+    """
+    fc, rc, lc = config.frontend, config.ransac, config.lm
+    K_inv = config.camera.K_inv(img0.dtype, img0.device)
+
+    kp = fast.detect(img0, fc.fast_threshold, fc.max_keypoints,
+                     use_kernel=use_kernel)
+    flow = klt.track(
+        img0, img1, kp.xy, valid=kp.valid, win=fc.klt_window,
+        levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig,
+        use_kernel=use_kernel,
+    )
+    n_tracked = torch.sum(flow.status).to(torch.int32)
+
+    p0 = cam.normalize(kp.xy, K_inv)
+    p1 = cam.normalize(flow.xy, K_inv)
+
+    thr = (rc.threshold_px / config.camera.fx) ** 2
+    rres = ransac_mod.ransac_essential(
+        generator, p0, p1, n_hyp=rc.hypotheses(), threshold=thr,
+        mask=flow.status, method=rc.method, solver=rc.solver,
+        samples=ransac_samples,
+    )
+    E = rres.E
+    if rc.refine_e:
+        E = essential.refine_essential(E, p0, p1, mask=rres.inliers,
+                                       iters=rc.refine_iters)
+    R_e, t_e, front = essential.recover_pose(E, p0, p1, mask=rres.inliers)
+    R_e, t_e = essential.pose_fallback(R_e, t_e)
+    T_e = se3.rt_to_matrix(R_e, t_e)
+
+    # Top-N cheirality-passing inliers for LM refinement.
+    sel = rres.inliers & front & flow.status
+    idx, sel_valid = _select_top(sel, lc.n_points)
+    out = lm.solve(
+        T_e[None], torch.zeros((1, 2), dtype=torch.int64, device=img0.device),
+        p0[idx][None], p1[idx][None], pmask=sel_valid[None],
+        lambda0=lc.lambda0, epsilon=lc.epsilon, max_iters=lc.max_iters,
+        huber_delta=lc.huber_delta,
+    )
+    # Revert to the E-pose when LM uncertainty is high or too few points
+    # were available to refine.
+    enough = torch.sum(sel_valid) >= lc.min_points
+    revert = (out.r_norm > lc.revert_r_norm) | ~enough
+    T = torch.where(revert, T_e, out.T0s[0])
+    # Two-view geometry is gauge-free in |t|: pin the unit norm.
+    T = _unit_translation(T)
+
+    R, t = se3.matrix_to_rt(T)
+    pts, pts_valid = epipolar.triangulate(R, t, p0, p1)
+    track_inl = flow.status & rres.inliers
+
+    return VOStepResult(
+        T=T,
+        n_tracked=n_tracked,
+        n_inliers=rres.n_inliers,
+        r_norm=out.r_norm,
+        reverted=revert,
+        points=pts,
+        points_valid=pts_valid & track_inl,
+        matches_src=kp.xy,
+        matches_tgt=flow.xy,
+        inlier_mask=track_inl,
+    )
+
+
+def apply_scale(T: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Keep rotation + translation direction, set the translation magnitude."""
+    t = T[..., :3, 3]
+    t_unit = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-12)
+    out = T.clone()
+    out[..., :3, 3] = t_unit * torch.as_tensor(scale, dtype=T.dtype,
+                                               device=T.device)[..., None]
+    return out
+
+
+def accumulate_trajectory(dTs: torch.Tensor, T_init: torch.Tensor | None = None):
+    """cT_{i+1} = cT_i @ inv(dT_i). dTs [F, 4, 4] per-step relative poses;
+    returns the [F+1, 4, 4] camera-to-world trajectory starting at identity
+    (or T_init)."""
+    cT = torch.eye(4, dtype=dTs.dtype, device=dTs.device) if T_init is None else T_init
+    traj = [cT]
+    for dT in dTs:
+        cT = cT @ se3.inverse(dT)
+        traj.append(cT)
+    return torch.stack(traj)

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips when no CUDA device is present (the
+decision is made inside the fixture, never at import). On a GPU machine:
+
+    python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
+
+(``--noconftest``: tests/conftest.py imports JAX, which the GPU machine
+need not have.)
+
+Tolerances: FAST (B1) and window extraction (B2) bit-exact; LK (B3)
+|dq| <= 1e-3 px and |derr| <= 1e-3 + 1e-4 |err|: the kernel samples the
+patch bit for bit like the plain version, but sums it in another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from epivo_tpu_torch.datasets import photoreal
+from epivo_tpu_torch.frontend import fast, image, klt
+from epivo_tpu_torch.geometry.camera import Pinhole
+from epivo_tpu_torch.pipeline import config, vo
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _int_image(shape, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g).float().to(dev)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (127, 255), (376, 1241), (3, 200, 300)])
+def test_fast_kernel_bit_exact(dev, shape):
+    img = _int_image(shape, 0, dev)
+    for nms in (False, True):
+        ref = fast.fast_score_map(img, 25.0)
+        if nms:
+            ref = fast.nms3(ref)
+        out = fast.fast_score_map_kernel(img, 25.0, nms=nms)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("B,S", [(1, 34), (8, 46), (2, 21)])
+def test_extract_kernel_exact(dev, B, S):
+    g = torch.Generator().manual_seed(1)
+    H, W, K = 188, 621, 512
+    img = torch.rand((B, H, W), generator=g).to(dev)
+    oy = torch.randint(0, H - S + 1, (B, K), generator=g).to(dev)
+    ox = torch.randint(0, W - S + 1, (B, K), generator=g).to(dev)
+    out = klt.extract_windows_kernel(img, oy, ox, S)
+    torch.cuda.synchronize()
+    assert torch.equal(out, klt.extract_windows_plain(img, oy, ox, S))
+    with pytest.raises(ValueError, match="out of bounds"):
+        klt.extract_windows_kernel(img, oy + H, ox, S)
+
+
+def _level_inputs(dev, S, level):
+    """LK inputs of one pyramid level of the textured fixture."""
+    rng = np.random.default_rng(3)
+    H, W, K = 240, 320, 512
+    img0 = np.cumsum(np.cumsum(rng.normal(size=(H, W)), 0), 1).astype(np.float32)
+    img1 = np.roll(np.roll(img0, 3, 1), -2, 0)
+    pts = torch.from_numpy(rng.uniform(10, [W - 10, H - 10], size=(K, 2)).astype(
+        np.float32)).to(dev)
+    s = 2.0 ** level
+    src = image.build_pyramid(torch.from_numpy(img0).to(dev), level + 1)[-1]
+    tgt = image.build_pyramid(torch.from_numpy(img1).to(dev), level + 1)[-1]
+    T, Ix, Iy, c_eff = klt._template(src, pts / s, 21, S)
+    tgt_wins, _, q0 = klt._target(tgt, c_eff, 21, S)
+    return tgt_wins, T, Ix, Iy, q0
+
+
+@pytest.mark.parametrize("S,level", [(34, 0), (46, 2)])
+def test_lk_kernel_matches_plain(dev, S, level):
+    args = _level_inputs(dev, S, level)
+    q_k, e_k = klt.lk_iterate_kernel(*args, 21, 12, 0.01)
+    q_p, e_p = klt.lk_iterate_plain(*args, 21, 12, 0.01)
+    torch.cuda.synchronize()
+    assert float((q_k - q_p).abs().max()) <= 1e-3
+    assert bool(((e_k - e_p).abs() <= 1e-3 + 1e-4 * e_p.abs()).all())
+
+
+def test_vo_step_launches_each_kernel(dev):
+    H, W = 96, 128
+    K = np.array([[110.0, 0, W / 2], [0, 110.0, H / 2], [0, 0, 1.0]])
+    frames, _, _ = photoreal.corridor_sequence(2, H=H, W=W, K=K, speed=0.45, seed=11)
+    f0, f1 = (torch.from_numpy(np.asarray(f)).to(dev) for f in frames)
+    cfg = config.VOConfig(
+        camera=Pinhole(110.0, 110.0, W / 2, H / 2, W, H),
+        frontend=config.FrontendConfig(fast_threshold=12.0, max_keypoints=128,
+                                       klt_levels=3),
+        ransac=config.RansacConfig(n_hyp=128), lm=config.LMConfig(n_points=16))
+    before = (fast.KERNEL_LAUNCHES, klt.EXTRACT_LAUNCHES, klt.LK_LAUNCHES)
+    res = vo.vo_step(f0, f1, torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    after = (fast.KERNEL_LAUNCHES, klt.EXTRACT_LAUNCHES, klt.LK_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 6, 3)
+    assert bool(torch.isfinite(res.T).all())
