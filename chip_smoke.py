@@ -11,10 +11,14 @@ Phases, each reported on its own line:
 2. build: the hand-written kernels, compiled from epivo_tpu_torch/csrc/
    into build/epivo_tpu_torch/ (first use only);
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the two-view VO step gives it, with both median times;
+   the shapes the two-view VO step gives it: the wrapper's time (host and
+   device), the kernel's own device time, the plain version's time, the
+   bound (the least time the card could take for the same work) and, where
+   one PyTorch call computes the same function, that call's time;
 4. slice: vo_step on the KITTI-sized (376x1241) photoreal corridor pair at
-   the bench configuration, counting kernel launches and checking the pose
-   against the ground truth and against the plain path;
+   the bench configuration, counting kernel launches, timing the step and
+   the KLT stage, checking that klt.track makes no host sync, and checking
+   the pose against the ground truth and against the plain path;
 5. degenerate: textureless frames must still give a finite pose.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -24,6 +28,7 @@ exits non-zero without that line. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -38,6 +43,10 @@ SEED = 7
 # tolerance on the tracked corner and on the mean residual.
 LK_Q_ATOL = 1e-3  # px
 LK_ERR_ATOL, LK_ERR_RTOL = 1e-3, 1e-4
+# The level kernel (B2 + B3 fused) against the plain level: the same
+# tolerances on the new guess and the residual; ok equal except where
+# min_ev / win^2 lies within this relative distance of min_eig.
+OK_NEAR_RTOL = 1e-4
 # Kernel path vs plain path of the whole step, same RANSAC samples.
 STEP_R_TOL, STEP_DIR_TOL = 2e-3, 2e-3
 # Pose against the corridor's ground truth.
@@ -64,6 +73,79 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# The card's peaks for the bound (H100 SXM data sheet): HBM bytes/s, and
+# float32 operations/s outside the tensor cores (an FMA counts as two).
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# Float operations per pixel, counted from the kernels' arithmetic.
+SAMPLE_OPS = 11  # four-tap bilinear blend: 8 products, 3 sums
+LK_STEP_OPS = SAMPLE_OPS + 5  # residual, and 2 multiply-adds into b
+G_OPS = 6  # 3 products, 3 sums into G
+ERR_OPS = SAMPLE_OPS + 2  # residual, |.| summed
+TAP3_OPS = 6  # one 3-tap Scharr pass
+FAST_OPS = 16 + 16 * 8 * 2 + 16 * 3 + 2  # ring differences, arc min/max, score
+NMS_OPS = 9
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """Least time in ms for moving ``nbytes`` and doing ``nops``, and which
+    of the two binds."""
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def device_ms(launch, kernel: str, reps: int = 50) -> tuple[float, str]:
+    """The kernel's own mean device time in ms per launch: torch.profiler's
+    device time for the kernel of that name, or, where the profiler shows
+    none, CUDA events around 100 back-to-back launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total_us += e.device_time_total
+            count += e.count
+    if count and total_us > 0:
+        return total_us / count / 1e3, "profiler"
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(100):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 100, "events"
+
+
+def lk_steps(tgt_wins, T, Ix, Iy, q0, win: int, iters: int, eps: float) -> int:
+    """Keypoint-steps the LK loop runs on these inputs before each keypoint
+    freezes (lk_iterate_plain's rule), for the data-dependent op count."""
+    from epivo_tpu_torch.frontend import klt
+
+    S = tgt_wins.shape[-1]
+    hi = S - win - 1 - 1e-3
+    Gxx, Gxy, Gyy = ((a * b).sum((1, 2)) for a, b in ((Ix, Ix), (Ix, Iy), (Iy, Iy)))
+    det = Gxx * Gyy - Gxy * Gxy
+    inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, 0.0)
+    q = q0.clamp(0.0, hi)
+    done = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    steps = 0
+    for _ in range(iters):
+        steps += int((~done).sum())
+        dI = klt._sample_patches(tgt_wins, q, win) - T
+        bx, by = (dI * Ix).sum((1, 2)), (dI * Iy).sum((1, 2))
+        step = torch.stack([-(Gyy * bx - Gxy * by) * inv_det,
+                            -(-Gxy * bx + Gxx * by) * inv_det], -1)
+        q = torch.where(done[:, None], q, (q + step).clamp(0.0, hi))
+        done = done | (torch.linalg.norm(step, dim=-1) < eps)
+    return steps
 
 
 def phase_device() -> tuple[str, str]:
@@ -100,10 +182,77 @@ def corridor_pair(dev):
     return f0, f1, gt
 
 
-def phase_kernels(f0, f1) -> dict:
-    """Each kernel vs its plain version at the main path's shapes."""
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """Replace ``module.name`` for the duration of the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def level_inputs(f0, f1, kp, cfg) -> list:
+    """Each pyramid level's (src, tgt, pt_src, guess) as klt.track hands
+    them to the level kernel, top level first."""
+    from epivo_tpu_torch.frontend import klt
+
+    seen, kernel = [], klt.track_level_kernel
+
+    def record(src, tgt, pt_src, guess, *args):
+        seen.append((src, tgt, pt_src, guess))
+        return kernel(src, tgt, pt_src, guess, *args)
+
+    fc = cfg.frontend
+    with patched(klt, "track_level_kernel", record):
+        klt.track(f0, f1, kp.xy, valid=kp.valid, win=fc.klt_window,
+                  levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig)
+    return seen
+
+
+def check_level(args, min_eig: float) -> tuple[float, float, int]:
+    """The level kernel against the plain level on the same inputs; returns
+    (max |d guess|, max |d err|, keypoints whose ok sits at the threshold)."""
+    from epivo_tpu_torch.frontend import klt
+
+    src, tgt, pts, guess, win, margin = args[:6]
+    g_k, ok_k, e_k = klt.track_level_kernel(*args)
+    g_p, ok_p, e_p = klt.track_level_composed(*args, use_kernel=False)
+    torch.cuda.synchronize()
+    _, Ix, Iy, _ = klt._template(src, pts, win, win + 2 * margin + 1, use_kernel=False)
+    near = ((klt._min_eigenvalue(Ix, Iy) / (win * win) - min_eig).abs()
+            <= OK_NEAR_RTOL * min_eig)
+    dg = float((g_k - g_p).abs().max())
+    de = float((e_k - e_p).abs().max())
+    what = f"level kernel (B={src.shape[0]}, margin={margin}, n_chunks={args[-1]})"
+    _check(dg <= LK_Q_ATOL, f"{what}: guess differs by {dg}")
+    _check(bool(((e_k - e_p).abs() <= LK_ERR_ATOL + LK_ERR_RTOL * e_p.abs()).all()),
+           f"{what}: err differs by {de}")
+    _check(bool(((ok_k == ok_p) | near).all()), f"{what}: ok differs off the threshold")
+    return dg, de, int(near.sum())
+
+
+def timed_in_turns(fns: dict, turns: int = 2, **kw) -> dict:
+    """cuda_ms of each callable, taken in turns (a, b, c, c, b, a, ...) in one
+    process; the mean of each one's medians."""
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for t in range(turns):
+        for k in (order if t % 2 == 0 else order[::-1]):
+            times[k].append(cuda_ms(fns[k], **kw))
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def phase_kernels(f0, f1, cfg) -> dict:
+    """Each kernel vs its plain version at the main path's shapes, with the
+    wrapper's time, the kernel's device time, the bound and the plain and
+    library times."""
+    from epivo_tpu_torch import _kernels
     from epivo_tpu_torch.frontend import fast, image, klt
 
+    lib = _kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
     dev = f0.device
     report = {}
 
@@ -117,40 +266,60 @@ def phase_kernels(f0, f1) -> dict:
         err = max(err, float((k - p).abs().max()))
     ms = cuda_ms(lambda: fast.fast_score_map_kernel(f0, 40.0, nms=True))
     plain_ms = cuda_ms(lambda: fast.nms3(fast.fast_score_map(f0, 40.0)))
-    print(f"kernel fast: {H}x{W} bit-equal, max_abs_err={err}, "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    report["fast"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    out = torch.empty_like(f0)
+    dev_ms, how = device_ms(lambda: lib.epivo_fast_score(
+        f0.data_ptr(), out.data_ptr(), 1, H, W, 40.0, 1, stream), "fast_score_kernel")
+    b_ms, b_by = bound(2 * H * W * 4, (H - 6) * (W - 6) * FAST_OPS + H * W * NMS_OPS)
+    print(f"kernel fast: {H}x{W} bit-equal, max_abs_err={err}, wrapper {ms:.4f} ms, "
+          f"device {dev_ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}), "
+          f"plain {plain_ms:.4f} ms")
+    report["fast"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # B2: window extraction at the main path's levels; bit-equal.
+    # B2: window extraction at the main path's levels; bit-equal. The
+    # library yardstick is one advanced-indexing gather of unfolded views.
     pyr = image.build_pyramid(f0, 4)
     g = torch.Generator().manual_seed(SEED)
-    err, times = 0.0, {}
+    err, rows = 0.0, {}
     for S, lvl in ((46, 3), (34, 0)):
         img = pyr[lvl]
+        Hl, Wl = img.shape
         for B in (1, 8):
             imgs = img[None].expand(B, -1, -1).contiguous()
-            Hl, Wl = img.shape
             oy = torch.randint(0, Hl - S + 1, (B, 512), generator=g).to(dev)
             ox = torch.randint(0, Wl - S + 1, (B, 512), generator=g).to(dev)
             k = klt.extract_windows_kernel(imgs, oy, ox, S)
             p = klt.extract_windows_plain(imgs, oy, ox, S)
+            b_idx = torch.arange(B, device=dev)[:, None].expand(B, 512)
+            gather = lambda: imgs.unfold(-2, S, 1).unfold(-2, S, 1)[b_idx, oy, ox]
             torch.cuda.synchronize()
             _check(torch.equal(k, p), f"extract kernel differs (S={S}, B={B})")
+            _check(torch.equal(gather(), p), f"library gather differs (S={S}, B={B})")
             err = max(err, float((k - p).abs().max()))
-            t_k = cuda_ms(lambda: klt.extract_windows_kernel(imgs, oy, ox, S))
-            t_p = cuda_ms(lambda: klt.extract_windows_plain(imgs, oy, ox, S))
-            times[(S, B)] = (t_k, t_p)
+            oy32, ox32 = oy.int().contiguous(), ox.int().contiguous()
+            raw = lambda: lib.epivo_extract_windows(
+                imgs.data_ptr(), oy32.data_ptr(), ox32.data_ptr(), k.data_ptr(),
+                B, Hl, Wl, 512, S, stream)
+            dev_ms, how = device_ms(raw, "extract_windows_kernel")
+            b_ms, b_by = bound(B * Hl * Wl * 4 + 2 * B * 512 * 4 + k.numel() * 4, 0)
+            t = timed_in_turns({
+                "kernel": lambda: klt.extract_windows_kernel(imgs, oy, ox, S),
+                "plain": lambda: klt.extract_windows_plain(imgs, oy, ox, S),
+                "library": gather}, turns=1)
+            rows[(S, B)] = dict(ms=t["kernel"], device_ms=dev_ms, plain_ms=t["plain"],
+                                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
             print(f"kernel extract: S={S} B={B} K=512 on {Hl}x{Wl} bit-equal, "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    report["extract"] = dict(max_abs_err=err, ms=times[(34, 1)][0],
-                             plain_ms=times[(34, 1)][1])
+                  f"wrapper {t['kernel']:.4f} ms, device {dev_ms:.4f} ms ({how}), "
+                  f"bound {b_ms:.4f} ms ({b_by}), plain {t['plain']:.4f} ms, "
+                  f"library gather {t['library']:.4f} ms")
+    report["extract"] = dict(max_abs_err=err, **rows[(34, 1)])
 
     # B3: LK on the path's own inputs (template at the detected corners,
     # zero-motion guess), at the top level (S=46) and the finest (S=34).
     kp = fast.detect(f0, 40.0, 512)
     pyr1 = image.build_pyramid(f1, 4)
     err_q = err_e = 0.0
-    times = {}
+    rows = {}
     for S, lvl in ((46, 3), (34, 0)):
         pts = kp.xy / 2.0 ** lvl
         T, Ix, Iy, c_eff = klt._template(pyr[lvl], pts, 21, S)
@@ -165,13 +334,76 @@ def phase_kernels(f0, f1) -> dict:
         _check(bool(((e_k - e_p).abs() <= LK_ERR_ATOL + LK_ERR_RTOL * e_p.abs()).all()),
                f"LK kernel err differs by {de} (S={S})")
         err_q, err_e = max(err_q, dq), max(err_e, de)
+        K, n = q0.shape[0], 21 * 21
+        raw = lambda: lib.epivo_lk_iterate(
+            tgt_wins.data_ptr(), T.data_ptr(), Ix.data_ptr(), Iy.data_ptr(),
+            q0.data_ptr(), q_k.data_ptr(), e_k.data_ptr(), K, S, 21, 12, 0.01,
+            S - 21 - 1 - 1e-3, stream)
+        dev_ms, how = device_ms(raw, "lk_iterate_kernel")
+        steps = lk_steps(*args)
+        b_ms, b_by = bound(tgt_wins.numel() * 4 + 3 * K * n * 4 + K * 2 * 4 * 2 + K * 4,
+                           K * n * (G_OPS + ERR_OPS) + steps * n * LK_STEP_OPS)
         t_k = cuda_ms(lambda: klt.lk_iterate_kernel(*args))
         t_p = cuda_ms(lambda: klt.lk_iterate_plain(*args), reps=5)
-        times[S] = (t_k, t_p)
-        print(f"kernel lk: S={S} K=512 iters=12 max|dq|={dq:.3g} px "
-              f"max|derr|={de:.3g}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-    report["lk"] = dict(max_abs_err=max(err_q, err_e), ms=times[34][0],
-                        plain_ms=times[34][1])
+        rows[S] = dict(ms=t_k, device_ms=dev_ms, plain_ms=t_p, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
+        print(f"kernel lk: S={S} K=512 iters=12 ({steps} keypoint-steps) "
+              f"max|dq|={dq:.3g} px max|derr|={de:.3g}, wrapper {t_k:.4f} ms, "
+              f"device {dev_ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}), "
+              f"plain {t_p:.4f} ms")
+    report["lk"] = dict(max_abs_err=max(err_q, err_e), **rows[34])
+
+    # The level kernel (B2 + B3 fused) on the inputs klt.track gives it at
+    # the top level (S=46) and the finest (S=34), against the plain level,
+    # timed in turns with the composed level (B2 + torch + B3, the main
+    # path before the level kernel) and the plain level.
+    fc = cfg.frontend
+    win, iters, eps, min_eig = fc.klt_window, fc.klt_iters, 0.01, fc.klt_min_eig
+    levels = level_inputs(f0, f1, kp, cfg)
+    err_g = err_e = 0.0
+    rows = {}
+    for S, (src, tgt, pts, guess) in ((46, levels[0]), (34, levels[-1])):
+        margin = (S - win - 1) // 2
+        args = (src, tgt, pts, guess, win, margin, iters, eps, min_eig, 1)
+        dg, de, n_near = check_level(args, min_eig)
+        err_g, err_e = max(err_g, dg), max(err_e, de)
+        B, Hl, Wl = src.shape
+        K, n = pts.shape[1], win * win
+        g_o, ok_o, e_o = (torch.empty_like(guess), torch.empty(pts.shape[:2], dtype=torch.bool, device=dev),
+                          torch.empty(pts.shape[:2], device=dev))
+        raw = lambda: lib.epivo_track_level(
+            src.data_ptr(), tgt.data_ptr(), pts.data_ptr(), guess.data_ptr(),
+            g_o.data_ptr(), ok_o.data_ptr(), e_o.data_ptr(), B, Hl, Wl, K, S, win,
+            iters, 1, eps, min_eig, S - win - 1 - 1e-3, stream)
+        dev_ms, how = device_ms(raw, "track_level_kernel")
+        T, Ix, Iy, c_eff = klt._template(src[0], pts[0], win, S, use_kernel=False)
+        tgt_wins, _, q0 = klt._target(tgt[0], guess[0] + (c_eff - pts[0]), win, S,
+                                      use_kernel=False)
+        steps = lk_steps(tgt_wins, T, Ix, Iy, q0, win, iters, eps)
+        scharr = ((win + 3) * (win + 1) + (win + 1) ** 2) * 2 * TAP3_OPS
+        b_ms, b_by = bound(
+            2 * B * Hl * Wl * 4 + 2 * B * K * 2 * 4 + B * K * (2 * 4 + 1 + 4),
+            K * (scharr + n * (3 * SAMPLE_OPS + G_OPS + ERR_OPS)) + steps * n * LK_STEP_OPS)
+        t = timed_in_turns({
+            "kernel": lambda: klt.track_level_kernel(*args),
+            "composed": lambda: klt.track_level_composed(*args, use_kernel=True),
+            "plain": lambda: klt.track_level_composed(*args, use_kernel=False)}, reps=10)
+        rows[S] = dict(ms=t["kernel"], device_ms=dev_ms, plain_ms=t["plain"],
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(f"kernel klt_level: S={S} K={K} on {Hl}x{Wl} max|dg|={dg:.3g} px "
+              f"max|derr|={de:.3g}, ok at the threshold: {n_near}; "
+              f"wrapper {t['kernel']:.4f} ms, device {dev_ms:.4f} ms ({how}), "
+              f"bound {b_ms:.4f} ms ({b_by}, {steps} keypoint-steps), "
+              f"composed B2 + B3 {t['composed']:.4f} ms, plain {t['plain']:.4f} ms")
+    # Once with a batch of two pairs and a re-centred second chunk.
+    src, tgt, pts, guess = levels[-1]
+    args = (torch.cat([src, tgt]), torch.cat([tgt, src]), torch.cat([pts, pts]),
+            torch.cat([guess, pts]), win, (34 - win - 1) // 2, iters, eps, min_eig, 2)
+    dg, de, n_near = check_level(args, min_eig)
+    err_g, err_e = max(err_g, dg), max(err_e, de)
+    print(f"kernel klt_level: S=34 B=2 n_chunks=2 max|dg|={dg:.3g} px "
+          f"max|derr|={de:.3g}, ok at the threshold: {n_near}")
+    report["klt_level"] = dict(max_abs_err=max(err_g, err_e), **rows[34])
     return report
 
 
@@ -198,13 +430,13 @@ def _pose_err(T, T_ref):
     return float(np.linalg.norm(T[:3, :3] - T_ref[:3, :3])), float(np.linalg.norm(d - d_ref))
 
 
-def phase_slice(f0, f1, gt) -> dict:
+def phase_slice(f0, f1, gt, cfg) -> dict:
     from epivo_tpu_torch import ransac
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.pipeline import vo
 
     dev = f0.device
-    cfg = bench_config()
+    fc = cfg.frontend
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
 
     def step(**kw):
@@ -215,16 +447,15 @@ def phase_slice(f0, f1, gt) -> dict:
     first = step()  # warm-up: allocator, cuBLAS handles
 
     n_steps = 5
-    fast.KERNEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
+    fast.KERNEL_LAUNCHES = klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
     times, results = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
         results.append(step())
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"fast": fast.KERNEL_LAUNCHES, "extract": klt.EXTRACT_LAUNCHES,
-                "lk": klt.LK_LAUNCHES}
-    per_step = {"fast": 1, "extract": 2 * cfg.frontend.klt_levels,
-                "lk": cfg.frontend.klt_levels}
+    launches = {"fast": fast.KERNEL_LAUNCHES, "klt_level": klt.LEVEL_LAUNCHES,
+                "extract": klt.EXTRACT_LAUNCHES, "lk": klt.LK_LAUNCHES}
+    per_step = {"fast": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0}
     _check(launches == {k: v * n_steps for k, v in per_step.items()},
            f"launch counts {launches} != {per_step} per step x {n_steps}")
     for r in results:  # repeat probe: same seed, same answer
@@ -245,14 +476,50 @@ def phase_slice(f0, f1, gt) -> dict:
           f"median {np.median(times):.2f} ms/step over {n_steps} "
           f"(launches per step: {per_step})")
 
+    # The KLT stage: klt.track on the kernel path must make no host sync;
+    # then its time, host clock with a synchronise on each side, in turns
+    # with the same track running each level as the composed B2 + torch + B3.
+    kp = fast.detect(f0, fc.fast_threshold, fc.max_keypoints)
+    track = lambda: klt.track(f0, f1, kp.xy, valid=kp.valid, win=fc.klt_window,
+                              levels=fc.klt_levels, iters=fc.klt_iters,
+                              min_eig=fc.klt_min_eig)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flow = track()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    def composed_level(*args, n_chunks, use_kernel):
+        return klt.track_level_composed(*args, n_chunks, use_kernel=True)
+
+    def stage_ms(fn, reps: int = 7) -> list:
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    stage = {"kernel": [], "composed": []}
+    for turn in ("kernel", "composed", "composed", "kernel"):
+        if turn == "composed":
+            with patched(klt, "_track_level", composed_level):
+                stage[turn] += stage_ms(track)
+        else:
+            stage[turn] += stage_ms(track)
+    track_ms = float(np.median(stage["kernel"]))
+    composed_ms = float(np.median(stage["composed"]))
+    print(f"slice: KLT stage (klt.track) {track_ms:.2f} ms on the kernel path, no host "
+          f"sync; {composed_ms:.2f} ms with each level composed of B2 + torch + B3; "
+          f"median of "
+          f"{len(stage['kernel'])} each, in turns; step {np.median(times):.2f} ms")
+
     # Kernel path vs plain path on the card, with the same injected samples.
-    kp = fast.detect(f0, cfg.frontend.fast_threshold, cfg.frontend.max_keypoints)
-    flow = klt.track(f0, f1, kp.xy, valid=kp.valid, win=cfg.frontend.klt_window,
-                     levels=cfg.frontend.klt_levels, iters=cfg.frontend.klt_iters,
-                     min_eig=cfg.frontend.klt_min_eig)
     samples = ransac._sample_indices(gen(), cfg.ransac.hypotheses(),
-                                     cfg.frontend.max_keypoints, flow.status,
-                                     device=dev)
+                                     fc.max_keypoints, flow.status, device=dev)
     r_k = step(ransac_samples=samples)
     t0 = time.perf_counter()
     r_p = step(ransac_samples=samples, use_kernel=False)
@@ -282,6 +549,9 @@ def phase_degenerate(dev) -> None:
 KERNELS = {
     "fast": ("epivo_tpu_torch/csrc/fast.cu",
              "epivo_tpu/frontend/pallas_fast.py:33"),
+    "klt_level": ("epivo_tpu_torch/csrc/klt_level.cu",
+                  "epivo_tpu/frontend/pallas_klt.py:211; "
+                  "epivo_tpu/frontend/pallas_klt.py:75"),
     "extract": ("epivo_tpu_torch/csrc/klt_extract.cu",
                 "epivo_tpu/frontend/pallas_klt.py:211"),
     "lk": ("epivo_tpu_torch/csrc/klt_lk.cu",
@@ -294,8 +564,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     f0, f1, gt = corridor_pair(dev)
-    report = phase_kernels(f0, f1)
-    launches = phase_slice(f0, f1, gt)
+    cfg = bench_config()
+    report = phase_kernels(f0, f1, cfg)
+    launches = phase_slice(f0, f1, gt, cfg)
     phase_degenerate(dev)
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

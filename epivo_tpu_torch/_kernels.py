@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every entry point returns a cudaError_t as int.
+# C signatures: every launching entry point returns a cudaError_t as int.
 _SIGNATURES = {
     # img, out, B, H, W, threshold, nms, stream
     "epivo_fast_score": (_P, _P, _I, _I, _I, _F, _I, _P),
@@ -39,6 +39,12 @@ _SIGNATURES = {
     "epivo_extract_windows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # tgt, T, Ix, Iy, q0, q_out, err, K, S, win, iters, eps, hi, stream
     "epivo_lk_iterate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # src, tgt, pt_src, guess, new_guess, ok, err, B, H, W, K, S, win,
+    # chunk_iters, n_chunks, eps, min_eig, hi, stream
+    "epivo_track_level": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _F, _F, _F, _P),
+    # S, win -> bytes of dynamic shared memory per block of the level kernel
+    "epivo_track_level_smem": (_I, _I),
 }
 
 _lib: ctypes.CDLL | None = None

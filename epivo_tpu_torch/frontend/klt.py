@@ -2,13 +2,18 @@
 ``epivo_tpu/frontend/klt.py``).
 
 Per pyramid level, each keypoint gets one integer-aligned S x S window
-(S = win + 2 * margin + 1) from the source and one from the target image
-(:func:`extract_windows`, the CUDA kernel ``csrc/klt_extract.cu`` on a
-CUDA tensor); the template and its Scharr gradients are sampled from the
-source window, and the LK iterations run inside the target window
-(:func:`lk_iterate`, the CUDA kernel ``csrc/klt_lk.cu``). Window origins
-clamp at image borders, and the effective template centre is tracked
-explicitly so clamping never biases the flow.
+(S = win + 2 * margin + 1) from the source and one from the target image;
+the template and its Scharr gradients are sampled from the source window,
+and the LK iterations run inside the target window. Window origins clamp
+at image borders, and the effective template centre is tracked explicitly
+so clamping never biases the flow.
+
+On a CUDA tensor a level is one launch of the CUDA kernel
+``csrc/klt_level.cu`` (:func:`track_level_kernel`), with no host sync. Its
+plain version is :func:`track_level_composed`: window extraction
+(:func:`extract_windows`, kernel B2 ``csrc/klt_extract.cu``), Scharr and
+sampling in torch, and the LK iterations (:func:`lk_iterate`, kernel B3
+``csrc/klt_lk.cu``); with ``use_kernel=False`` all of it is plain torch.
 
 Layout is keypoint-major ([K, S, S]) with direct bilinear gathers; the
 reference's lane-major layout and its shift-network samplers exist only
@@ -28,6 +33,10 @@ from epivo_tpu_torch.frontend import image as imops
 # Launches of the CUDA kernels made by this process (never by the plain path).
 EXTRACT_LAUNCHES = 0
 LK_LAUNCHES = 0
+LEVEL_LAUNCHES = 0
+
+# Shared memory a block may use on Hopper (227 KB).
+SMEM_PER_BLOCK = 232448
 
 
 class FlowResult(NamedTuple):
@@ -100,15 +109,19 @@ def extract_windows(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
 
 def _extract_windows(img: torch.Tensor, centers: torch.Tensor, size: int,
                      use_kernel: bool | None = None):
-    """[K] integer-aligned size x size windows around ``centers`` of one
-    [H, W] image. Returns (windows [K, size, size], origins [K, 2] (x, y)):
-    the actual clamped top-left corners, which callers must use."""
-    H, W = img.shape
+    """Integer-aligned size x size windows around ``centers`` [..., K, 2] of
+    [..., H, W] images (no leading axis, or one batch axis). Returns
+    (windows [..., K, size, size], origins [..., K, 2] (x, y)): the actual
+    clamped top-left corners, which callers must use."""
+    H, W = img.shape[-2:]
     r = size // 2
     c_int = torch.round(centers).to(torch.int32)  # half to even, as jnp.round
-    ox = torch.clamp(c_int[:, 0] - r, 0, W - size)
-    oy = torch.clamp(c_int[:, 1] - r, 0, H - size)
-    wins = extract_windows(img[None], oy[None], ox[None], size, use_kernel)[0]
+    ox = torch.clamp(c_int[..., 0] - r, 0, W - size)
+    oy = torch.clamp(c_int[..., 1] - r, 0, H - size)
+    if img.dim() == 2:
+        wins = extract_windows(img[None], oy[None], ox[None], size, use_kernel)[0]
+    else:
+        wins = extract_windows(img, oy, ox, size, use_kernel)
     return wins, torch.stack([ox, oy], dim=-1).to(img.dtype)
 
 
@@ -234,28 +247,127 @@ def lk_iterate(tgt_wins, T, Ix, Iy, q0, win: int, iters: int, eps: float,
 
 def _template(src: torch.Tensor, pt_src: torch.Tensor, win: int, S: int,
               use_kernel: bool | None = None):
-    """Template T and gradients Ix/Iy [K, win, win] at ``pt_src`` [K, 2] from
-    one source window each, and the effective (clamp-aware) template
-    centres c_eff [K, 2]."""
+    """Template T and gradients Ix/Iy [..., K, win, win] at ``pt_src``
+    [..., K, 2] from one source window each, and the effective
+    (clamp-aware) template centres c_eff [..., K, 2]."""
     hi = S - win - 1 - 1e-3
     src_wins, o_s = _extract_windows(src, pt_src, S, use_kernel)
     gx, gy = _grad_batch(src_wins)
     q_s = torch.clamp(pt_src - o_s - (win - 1) / 2.0, 0.0, hi)
     c_eff = o_s + q_s + (win - 1) / 2.0
-    T = _sample_patches(src_wins, q_s, win)
-    Ix = _sample_patches(gx, q_s, win)
-    Iy = _sample_patches(gy, q_s, win)
+    q_flat, lead = q_s.reshape(-1, 2), q_s.shape[:-1]
+    T, Ix, Iy = (_sample_patches(w.reshape(-1, S, S), q_flat, win).reshape(
+        *lead, win, win) for w in (src_wins, gx, gy))
     return T, Ix, Iy, c_eff
 
 
 def _target(tgt: torch.Tensor, g: torch.Tensor, win: int, S: int,
             use_kernel: bool | None = None):
-    """Target windows [K, S, S] around the guesses g [K, 2], their origins
-    [K, 2] and the starting corners q0 [K, 2] inside them."""
+    """Target windows [..., K, S, S] around the guesses g [..., K, 2], their
+    origins [..., K, 2] and the starting corners q0 [..., K, 2] inside them."""
     hi = S - win - 1 - 1e-3
     tgt_wins, o_t = _extract_windows(tgt, g, S, use_kernel)
     q0 = torch.clamp(g - o_t - (win - 1) / 2.0, 0.0, hi)
     return tgt_wins, o_t, q0
+
+
+def _min_eigenvalue(Ix: torch.Tensor, Iy: torch.Tensor) -> torch.Tensor:
+    """Smaller eigenvalue of G = sum [Ix^2, IxIy; IxIy, Iy^2] over each
+    [..., win, win] patch."""
+    Gxx = torch.sum(Ix * Ix, dim=(-2, -1))
+    Gxy = torch.sum(Ix * Iy, dim=(-2, -1))
+    Gyy = torch.sum(Iy * Iy, dim=(-2, -1))
+    det = Gxx * Gyy - Gxy * Gxy
+    trace = Gxx + Gyy
+    return (trace - torch.sqrt(torch.clamp(trace * trace - 4 * det, min=0.0))) / 2.0
+
+
+def track_level_composed(src, tgt, pt_src, guess, win: int, margin: int,
+                         iters: int, eps: float, min_eig: float,
+                         n_chunks: int = 2, use_kernel: bool | None = None):
+    """One pyramid level as a composition: window extraction (B2), Scharr,
+    template sampling and the LK iterations (B3) in torch around them.
+
+    src/tgt [..., H, W] with no leading axis or one batch axis; pt_src /
+    guess [..., K, 2] positions at this level's scale. Returns (new_guess
+    [..., K, 2], ok [..., K], err [..., K]). The target window is
+    re-centred between ``n_chunks`` chunks of iterations.
+
+    With ``use_kernel=False`` this is the plain version of the level kernel
+    (:func:`track_level_kernel`); otherwise B2 and B3 follow their own
+    ``use_kernel`` rule.
+    """
+    S = win + 2 * margin + 1
+    T, Ix, Iy, c_eff = _template(src, pt_src, win, S, use_kernel)
+    ok = _min_eigenvalue(Ix, Iy) / (win * win) > min_eig
+
+    # B3 takes keypoints on one axis: fold any batch axis into it.
+    flat = lambda a, *tail: a.reshape(-1, *tail)
+    chunk_iters = max(1, iters // n_chunks)
+    g = guess + (c_eff - pt_src)  # track the effective template centre
+    err = None
+    for _ in range(n_chunks):
+        tgt_wins, o_t, q0 = _target(tgt, g, win, S, use_kernel)
+        q_fin, err = lk_iterate(flat(tgt_wins, S, S), flat(T, win, win),
+                                flat(Ix, win, win), flat(Iy, win, win),
+                                flat(q0, 2), win, chunk_iters, eps, use_kernel)
+        g = q_fin.reshape(g.shape) + o_t + (win - 1) / 2.0
+    # Position of pt_src's content = pt_src + measured template flow.
+    return pt_src + (g - c_eff), ok, err.reshape(ok.shape)
+
+
+def track_level_kernel(src, tgt, pt_src, guess, win: int, margin: int,
+                       iters: int, eps: float, min_eig: float,
+                       n_chunks: int = 2):
+    """One pyramid level by the CUDA kernel ``csrc/klt_level.cu``, one
+    launch; the contract of :func:`track_level_composed`, which it matches
+    to a tolerance (its G, b and err sums run in another order).
+
+    src/tgt [B, H, W] float32 CUDA images (padded to the window);
+    pt_src/guess [B, K, 2]. Makes no host sync: every origin is clamped on
+    the device.
+    """
+    global LEVEL_LAUNCHES
+    if not src.is_cuda:
+        raise ValueError("track_level_kernel needs a CUDA tensor")
+    args = (src, tgt, pt_src, guess)
+    if any(a.dtype != torch.float32 or a.device != src.device for a in args):
+        raise ValueError("track_level_kernel needs float32 tensors on one device")
+    if src.dim() != 3 or tgt.shape != src.shape:
+        raise ValueError(f"expected src and tgt [B, H, W], got {tuple(src.shape)} "
+                         f"and {tuple(tgt.shape)}")
+    B, H, W = src.shape
+    if (pt_src.dim() != 3 or pt_src.shape[0] != B or pt_src.shape[2] != 2
+            or guess.shape != pt_src.shape):
+        raise ValueError(f"expected pt_src and guess [{B}, K, 2], got "
+                         f"{tuple(pt_src.shape)} and {tuple(guess.shape)}")
+    K = pt_src.shape[1]
+    S = win + 2 * margin + 1
+    if win < 1 or margin < 1 or S > min(H, W):
+        raise ValueError(f"win={win}, margin={margin} (S={S}) do not fit a "
+                         f"{H}x{W} image")
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    lib = _kernels.lib()
+    smem = lib.epivo_track_level_smem(S, win)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"S={S}, win={win} need {smem} B of shared memory per "
+                         f"block, over the {SMEM_PER_BLOCK} B a block may use")
+    src, tgt, pt_src, guess = (a.contiguous() for a in args)
+    new_guess = torch.empty_like(pt_src)
+    ok = torch.empty((B, K), dtype=torch.bool, device=src.device)
+    err = torch.empty((B, K), dtype=torch.float32, device=src.device)
+    if B * K == 0:
+        return new_guess, ok, err
+    hi = S - win - 1 - 1e-3
+    status = lib.epivo_track_level(
+        src.data_ptr(), tgt.data_ptr(), pt_src.data_ptr(), guess.data_ptr(),
+        new_guess.data_ptr(), ok.data_ptr(), err.data_ptr(), B, H, W, K, S,
+        int(win), max(1, int(iters) // int(n_chunks)), int(n_chunks),
+        float(eps), float(min_eig), float(hi), _kernels.stream_of(src))
+    _kernels.check(status, "epivo_track_level")
+    LEVEL_LAUNCHES += 1
+    return new_guess, ok, err
 
 
 def _track_level(
@@ -271,33 +383,19 @@ def _track_level(
     n_chunks: int = 2,
     use_kernel: bool | None = None,
 ):
-    """One pyramid level of LK for all points at once.
-
-    pt_src / guess: [K, 2] positions at this level's scale. Returns
-    (new_guess [K, 2], ok [K], err [K]). The target window is re-centred
-    between ``n_chunks`` chunks of iterations.
-    """
-    S = win + 2 * margin + 1
-    T, Ix, Iy, c_eff = _template(src, pt_src, win, S, use_kernel)
-
-    Gxx = torch.sum(Ix * Ix, dim=(1, 2))
-    Gxy = torch.sum(Ix * Iy, dim=(1, 2))
-    Gyy = torch.sum(Iy * Iy, dim=(1, 2))
-    det = Gxx * Gyy - Gxy * Gxy
-    trace = Gxx + Gyy
-    min_ev = (trace - torch.sqrt(torch.clamp(trace * trace - 4 * det, min=0.0))) / 2.0
-    ok = min_ev / (win * win) > min_eig
-
-    chunk_iters = max(1, iters // n_chunks)
-    g = guess + (c_eff - pt_src)  # track the effective template centre
-    err = None
-    for _ in range(n_chunks):
-        tgt_wins, o_t, q0 = _target(tgt, g, win, S, use_kernel)
-        q_fin, err = lk_iterate(tgt_wins, T, Ix, Iy, q0, win, chunk_iters, eps,
-                                use_kernel)
-        g = q_fin + o_t + (win - 1) / 2.0
-    # Position of pt_src's content = pt_src + measured template flow.
-    return pt_src + (g - c_eff), ok, err
+    """One pyramid level of LK for all points at once: the level kernel on
+    a CUDA tensor, the plain composition on a CPU tensor (``use_kernel``
+    overrides). Shapes as :func:`track_level_composed`."""
+    if not kernel_wanted(src, use_kernel):
+        return track_level_composed(src, tgt, pt_src, guess, win, margin, iters,
+                                    eps, min_eig, n_chunks, use_kernel=False)
+    if src.dim() == 3:
+        return track_level_kernel(src, tgt, pt_src, guess, win, margin, iters,
+                                  eps, min_eig, n_chunks)
+    g, ok, err = track_level_kernel(src[None], tgt[None], pt_src[None],
+                                    guess[None], win, margin, iters, eps,
+                                    min_eig, n_chunks)
+    return g[0], ok[0], err[0]
 
 
 def default_margins(levels: int) -> list[int]:
@@ -327,8 +425,8 @@ def track(
     OpenCV-default-equivalent configuration: winSize 21, 4 levels, eps
     0.01. ``margin`` bounds the per-chunk displacement per level: an int or
     a per-level sequence (entry 0 = full resolution); the default is 12 at
-    the top level and 6 below. ``use_kernel=None`` runs the CUDA kernels
-    for CUDA tensors and the plain versions for CPU tensors.
+    the top level and 6 below. ``use_kernel=None`` runs the level kernel
+    for CUDA tensors and the plain composition for CPU tensors.
     """
     if margin is None:
         margin = default_margins(levels)

@@ -5,7 +5,8 @@
            -> revert-on-high-uncertainty -> relative pose + triangulated cloud
 
 Every step after image upload runs on the images' device with static
-shapes; the only host syncs are the kernels' argument checks.
+shapes. ``klt.track`` makes no host sync (``chip_smoke.py`` runs it
+under ``torch.cuda.set_sync_debug_mode("error")``).
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ need not have.)
 Tolerances: FAST (B1) and window extraction (B2) bit-exact; LK (B3)
 |dq| <= 1e-3 px and |derr| <= 1e-3 + 1e-4 |err|: the kernel samples the
 patch bit for bit like the plain version, but sums it in another order.
+The level kernel (B2 + B3 fused) is held to the same tolerances on the new
+guess and the residual, and to equal ``ok`` except where min_ev / win^2
+lies within 1e-4 relative of min_eig (its G sums run in another order).
 """
 
 import numpy as np
@@ -89,6 +92,43 @@ def test_lk_kernel_matches_plain(dev, S, level):
     assert bool(((e_k - e_p).abs() <= 1e-3 + 1e-4 * e_p.abs()).all())
 
 
+def _level_case(dev, S, B, seed):
+    """Pyramid-level images and keypoints for the level kernel: B textured
+    pairs, keypoints inside, on and beyond the border."""
+    rng = np.random.default_rng(seed)
+    H, W, K = 150, 260, 300
+    src, tgt = [], []
+    for b in range(B):
+        img0 = np.cumsum(np.cumsum(rng.normal(size=(H, W)), 0), 1).astype(np.float32)
+        src.append(img0)
+        tgt.append(np.roll(np.roll(img0, 2 + b, 1), -1 - b, 0))
+    pts = rng.uniform(-5, [W + 5, H + 5], size=(B, K, 2)).astype(np.float32)
+    pts[:, :8] = [[0, 0], [W - 1, H - 1], [0.5, 40.5], [W - 0.5, 20], [-3, -3],
+                  [W + 2, 70], [31.5, H - 2.5], [100.5, 0.5]]
+    guess = pts + rng.uniform(-2, 2, size=pts.shape).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.stack(a) if isinstance(a, list) else a).to(dev)
+    return t(src), t(tgt), t(pts), t(guess), (S - 22) // 2
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("S", [34, 46])
+def test_level_kernel_matches_plain(dev, S, B, n_chunks):
+    src, tgt, pts, guess, margin = _level_case(dev, S, B, seed=S + 10 * B + n_chunks)
+    args = (src, tgt, pts, guess, 21, margin, 12, 0.01, 1e-4, n_chunks)
+    g_k, ok_k, e_k = klt.track_level_kernel(*args)
+    g_p, ok_p, e_p = klt.track_level_composed(*args, use_kernel=False)
+    torch.cuda.synchronize()
+    assert g_k.shape == g_p.shape and ok_k.shape == ok_p.shape == e_p.shape
+    assert float((g_k - g_p).abs().max()) <= 1e-3
+    assert bool(((e_k - e_p).abs() <= 1e-3 + 1e-4 * e_p.abs()).all())
+    # ok may differ only where min_ev / win^2 is within rounding of min_eig.
+    _, Ix, Iy, _ = klt._template(src, pts, 21, 21 + 2 * margin + 1, use_kernel=False)
+    min_eig = args[8]
+    near = (klt._min_eigenvalue(Ix, Iy) / 441 - min_eig).abs() <= 1e-4 * min_eig
+    assert bool(((ok_k == ok_p) | near).all())
+
+
 def test_vo_step_launches_each_kernel(dev):
     H, W = 96, 128
     K = np.array([[110.0, 0, W / 2], [0, 110.0, H / 2], [0, 0, 1.0]])
@@ -99,9 +139,10 @@ def test_vo_step_launches_each_kernel(dev):
         frontend=config.FrontendConfig(fast_threshold=12.0, max_keypoints=128,
                                        klt_levels=3),
         ransac=config.RansacConfig(n_hyp=128), lm=config.LMConfig(n_points=16))
-    before = (fast.KERNEL_LAUNCHES, klt.EXTRACT_LAUNCHES, klt.LK_LAUNCHES)
+    counts = lambda: (fast.KERNEL_LAUNCHES, klt.EXTRACT_LAUNCHES, klt.LK_LAUNCHES,
+                      klt.LEVEL_LAUNCHES)
+    before = counts()
     res = vo.vo_step(f0, f1, torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    after = (fast.KERNEL_LAUNCHES, klt.EXTRACT_LAUNCHES, klt.LK_LAUNCHES)
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 6, 3)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 0, 3)
     assert bool(torch.isfinite(res.T).all())
