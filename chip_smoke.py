@@ -16,9 +16,10 @@ Phases, each reported on its own line:
    bound (the least time the card could take for the same work) and, where
    one PyTorch call computes the same function, that call's time;
 4. slice: vo_step on the KITTI-sized (376x1241) photoreal corridor pair at
-   the bench configuration, counting kernel launches, timing the step and
-   the KLT stage, checking that klt.track makes no host sync, and checking
-   the pose against the ground truth and against the plain path;
+   the bench configuration, counting kernel launches, timing the step, the
+   detect stage and the KLT stage, checking that fast.detect and klt.track
+   make no host sync, and checking the pose against the ground truth and
+   against the plain path;
 5. degenerate: textureless frames must still give a finite pose.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -85,8 +86,19 @@ LK_STEP_OPS = SAMPLE_OPS + 5  # residual, and 2 multiply-adds into b
 G_OPS = 6  # 3 products, 3 sums into G
 ERR_OPS = SAMPLE_OPS + 2  # residual, |.| summed
 TAP3_OPS = 6  # one 3-tap Scharr pass
-FAST_OPS = 16 + 16 * 8 * 2 + 16 * 3 + 2  # ring differences, arc min/max, score
-NMS_OPS = 9
+# FAST without early rejection: ring differences, 16 arcs x 8 x (min, max),
+# the best arc and the score (printed beside the bound for comparison).
+FAST_NAIVE_OPS = 16 + 16 * 8 * 2 + 16 * 3 + 2
+# The compass test: the neighbouring pairs' min and max (14), two centre
+# subtractions, two comparisons.
+COMPASS_OPS = 14 + 2 + 2
+# One side of the full score: shared partial minima (48), arc minima (16),
+# the best-arc tree (15), the centre, the threshold.
+ARC_OPS = 48 + 16 + 15 + 1 + 1
+NMS_OPS = 9  # 8 neighbour maxima and the comparison (dense kernel)
+NMS_SEP_OPS = 6  # with row maxima shared between rows (candidate kernel)
+SELECT_OPS = 2 * 256  # per selection round of a block: max reduction, ballots
+FAST_T = 40.0  # the bench configuration's threshold
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -96,10 +108,12 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def device_ms(launch, kernel: str, reps: int = 50) -> tuple[float, str]:
+def device_ms(launch, kernel: str | None, reps: int = 50) -> tuple[float, str]:
     """The kernel's own mean device time in ms per launch: torch.profiler's
     device time for the kernel of that name, or, where the profiler shows
-    none, CUDA events around 100 back-to-back launches."""
+    none, CUDA events around 100 back-to-back launches. With kernel=None,
+    the device time of every kernel one call of ``launch`` runs."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     launch()
@@ -110,7 +124,10 @@ def device_ms(launch, kernel: str, reps: int = 50) -> tuple[float, str]:
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
     for e in prof.key_averages():
-        if kernel in e.key:
+        if kernel is None and e.device_type == DeviceType.CUDA:
+            total_us += e.device_time_total
+            count = reps
+        elif kernel is not None and kernel in e.key:
             total_us += e.device_time_total
             count += e.count
     if count and total_us > 0:
@@ -122,6 +139,19 @@ def device_ms(launch, kernel: str, reps: int = 50) -> tuple[float, str]:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 100, "events"
+
+
+def fast_work(img: torch.Tensor, t: float) -> tuple[int, int]:
+    """(interior pixels, compass-test sides passed summed over them) of one
+    frame: the data-dependent part of the FAST op count."""
+    H, W = img.shape
+    c = img[3:H - 3, 3:W - 3]
+    d = [img[3 + dy:H - 3 + dy, 3 + dx:W - 3 + dx] - c
+         for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+    pairs = ((0, 1), (1, 2), (2, 3), (3, 0))
+    bright = torch.stack([(d[a] > t) & (d[b] > t) for a, b in pairs]).any(0)
+    dark = torch.stack([(d[a] < -t) & (d[b] < -t) for a, b in pairs]).any(0)
+    return c.numel(), int(bright.sum()) + int(dark.sum())
 
 
 def lk_steps(tgt_wins, T, Ix, Iy, q0, win: int, iters: int, eps: float) -> int:
@@ -180,6 +210,16 @@ def corridor_pair(dev):
     frames, gt, _ = photoreal.corridor_sequence(2, H=H, W=W, seed=0)
     f0, f1 = (torch.from_numpy(np.asarray(f, np.float32)).to(dev) for f in frames)
     return f0, f1, gt
+
+
+def no_sync(fn):
+    """fn() with any host sync raising (torch.cuda.set_sync_debug_mode)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @contextlib.contextmanager
@@ -256,25 +296,72 @@ def phase_kernels(f0, f1, cfg) -> dict:
     dev = f0.device
     report = {}
 
-    # B1: FAST score + NMS on both full frames; bit-equal.
-    err = 0.0
-    for img in (f0, f1):
-        k = fast.fast_score_map_kernel(img, 40.0, nms=True)
-        p = fast.nms3(fast.fast_score_map(img, 40.0))
+    # B1: the dense FAST score + NMS and the fused candidate kernel (score,
+    # NMS and the first top-k stage) on both full frames and on a B = 2
+    # stack, against nms3(fast_score_map) and block_candidates of it;
+    # bit-equal.
+    thr = FAST_T
+    err = cerr = 0.0
+    for img in (f0, f1, torch.stack([f0, f1])):
+        p = fast.nms3(fast.fast_score_map(img, thr))
+        k = fast.fast_score_map_kernel(img, thr, nms=True)
+        pv, pi = fast.block_candidates(p)
+        kv, ki = fast.fast_candidates_kernel(img, thr, nms=True)
         torch.cuda.synchronize()
-        _check(torch.equal(k, p), "FAST kernel differs from plain")
+        _check(torch.equal(k, p), f"FAST kernel differs from plain ({tuple(img.shape)})")
+        _check(torch.equal(kv, pv) and torch.equal(ki, pi),
+               f"FAST candidate kernel differs from plain ({tuple(img.shape)})")
         err = max(err, float((k - p).abs().max()))
-    ms = cuda_ms(lambda: fast.fast_score_map_kernel(f0, 40.0, nms=True))
-    plain_ms = cuda_ms(lambda: fast.nms3(fast.fast_score_map(f0, 40.0)))
+        cerr = max(cerr, float((kv - pv).abs().max()))
+    n_int, n_sides = fast_work(f0, thr)
+    pv, _ = fast.block_candidates(fast.nms3(fast.fast_score_map(f0, thr)))
+    rounds = int((1 + (pv[:, 1:] != pv[:, :-1]).sum(-1)).sum())
+    nb = pv.shape[0]
+    score_ops = n_int * COMPASS_OPS + n_sides * ARC_OPS
+    naive_ops = (H - 6) * (W - 6) * FAST_NAIVE_OPS + H * W * NMS_OPS
+    print(f"FAST work on frame 0: {n_int} interior pixels, {n_sides} compass-test "
+          f"sides passed ({n_sides / n_int:.4f} per pixel), {nb} blocks, {rounds} "
+          f"selection rounds; {score_ops} operations to score "
+          f"(naive arc loop and NMS: {naive_ops})")
+
     out = torch.empty_like(f0)
     dev_ms, how = device_ms(lambda: lib.epivo_fast_score(
-        f0.data_ptr(), out.data_ptr(), 1, H, W, 40.0, 1, stream), "fast_score_kernel")
-    b_ms, b_by = bound(2 * H * W * 4, (H - 6) * (W - 6) * FAST_OPS + H * W * NMS_OPS)
-    print(f"kernel fast: {H}x{W} bit-equal, max_abs_err={err}, wrapper {ms:.4f} ms, "
-          f"device {dev_ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}), "
-          f"plain {plain_ms:.4f} ms")
-    report["fast"] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        f0.data_ptr(), out.data_ptr(), 1, H, W, thr, 1, stream), "fast_score_kernel")
+    b_ms, b_by = bound(2 * H * W * 4, score_ops + H * W * NMS_OPS)
+    naive_ms, naive_by = bound(2 * H * W * 4, naive_ops)
+    tt = timed_in_turns({
+        "kernel": lambda: fast.fast_score_map_kernel(f0, thr, nms=True),
+        "plain": lambda: fast.nms3(fast.fast_score_map(f0, thr))}, turns=1)
+    print(f"kernel fast: {H}x{W} bit-equal (B=1, B=2), max_abs_err={err}, wrapper "
+          f"{tt['kernel']:.4f} ms, device {dev_ms:.4f} ms ({how}), bound {b_ms:.4f} ms "
+          f"({b_by}; with the naive op count {naive_ms:.4f} ms, {naive_by}), "
+          f"plain {tt['plain']:.4f} ms")
+    report["fast"] = dict(max_abs_err=err, ms=tt["kernel"], device_ms=dev_ms,
+                          plain_ms=tt["plain"], bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+
+    cv = torch.empty((nb, 8), device=dev)
+    ci = torch.empty((nb, 8), dtype=torch.int32, device=dev)
+    dev_ms, how = device_ms(lambda: lib.epivo_fast_candidates(
+        f0.data_ptr(), cv.data_ptr(), ci.data_ptr(), 1, H, W, thr, 1, stream),
+        "fast_candidates_kernel")
+    cand_bytes = H * W * 4 + nb * 8 * (4 + 4)
+    cand_ops = score_ops + H * W * NMS_SEP_OPS + rounds * SELECT_OPS
+    b_ms, b_by = bound(cand_bytes, cand_ops)
+    naive_ms, naive_by = bound(cand_bytes, naive_ops + nb * 8 * SELECT_OPS)
+    tt = timed_in_turns({
+        "kernel": lambda: fast.fast_candidates_kernel(f0, thr, nms=True),
+        "plain": lambda: fast.block_candidates(fast.nms3(fast.fast_score_map(f0, thr)))},
+        turns=1)
+    print(f"kernel fast_cand: {H}x{W} -> {nb}x8 candidates bit-equal (B=1, B=2), "
+          f"max_abs_err={cerr}, wrapper {tt['kernel']:.4f} ms, device {dev_ms:.4f} ms "
+          f"({how}), bound {b_ms:.4f} ms ({b_by}; {cand_bytes} bytes, "
+          f"{cand_ops} operations; with the naive op count "
+          f"and 8 rounds per block {naive_ms:.4f} ms, {naive_by}), "
+          f"plain {tt['plain']:.4f} ms")
+    report["fast_cand"] = dict(max_abs_err=cerr, ms=tt["kernel"], device_ms=dev_ms,
+                               plain_ms=tt["plain"], bound_ms=b_ms, bound_by=b_by,
+                               library_ms=None)
 
     # B2: window extraction at the main path's levels; bit-equal. The
     # library yardstick is one advanced-indexing gather of unfolded views.
@@ -288,7 +375,7 @@ def phase_kernels(f0, f1, cfg) -> dict:
             imgs = img[None].expand(B, -1, -1).contiguous()
             oy = torch.randint(0, Hl - S + 1, (B, 512), generator=g).to(dev)
             ox = torch.randint(0, Wl - S + 1, (B, 512), generator=g).to(dev)
-            k = klt.extract_windows_kernel(imgs, oy, ox, S)
+            k = no_sync(lambda: klt.extract_windows_kernel(imgs, oy, ox, S))
             p = klt.extract_windows_plain(imgs, oy, ox, S)
             b_idx = torch.arange(B, device=dev)[:, None].expand(B, 512)
             gather = lambda: imgs.unfold(-2, S, 1).unfold(-2, S, 1)[b_idx, oy, ox]
@@ -301,22 +388,25 @@ def phase_kernels(f0, f1, cfg) -> dict:
                 imgs.data_ptr(), oy32.data_ptr(), ox32.data_ptr(), k.data_ptr(),
                 B, Hl, Wl, 512, S, stream)
             dev_ms, how = device_ms(raw, "extract_windows_kernel")
+            lib_dev_ms, lib_how = device_ms(gather, None)
             b_ms, b_by = bound(B * Hl * Wl * 4 + 2 * B * 512 * 4 + k.numel() * 4, 0)
             t = timed_in_turns({
                 "kernel": lambda: klt.extract_windows_kernel(imgs, oy, ox, S),
                 "plain": lambda: klt.extract_windows_plain(imgs, oy, ox, S),
                 "library": gather}, turns=1)
             rows[(S, B)] = dict(ms=t["kernel"], device_ms=dev_ms, plain_ms=t["plain"],
-                                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
-            print(f"kernel extract: S={S} B={B} K=512 on {Hl}x{Wl} bit-equal, "
-                  f"wrapper {t['kernel']:.4f} ms, device {dev_ms:.4f} ms ({how}), "
+                                bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
+                                library_device_ms=lib_dev_ms)
+            print(f"kernel extract: S={S} B={B} K=512 on {Hl}x{Wl} bit-equal, no host "
+                  f"sync, wrapper {t['kernel']:.4f} ms, device {dev_ms:.4f} ms ({how}), "
                   f"bound {b_ms:.4f} ms ({b_by}), plain {t['plain']:.4f} ms, "
-                  f"library gather {t['library']:.4f} ms")
+                  f"library gather {t['library']:.4f} ms, its device time "
+                  f"{lib_dev_ms:.4f} ms ({lib_how})")
     report["extract"] = dict(max_abs_err=err, **rows[(34, 1)])
 
     # B3: LK on the path's own inputs (template at the detected corners,
     # zero-motion guess), at the top level (S=46) and the finest (S=34).
-    kp = fast.detect(f0, 40.0, 512)
+    kp = fast.detect(f0, FAST_T, 512)
     pyr1 = image.build_pyramid(f1, 4)
     err_q = err_e = 0.0
     rows = {}
@@ -447,15 +537,18 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
     first = step()  # warm-up: allocator, cuBLAS handles
 
     n_steps = 5
-    fast.KERNEL_LAUNCHES = klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
+    fast.KERNEL_LAUNCHES = fast.CAND_LAUNCHES = 0
+    klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
     times, results = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
         results.append(step())
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"fast": fast.KERNEL_LAUNCHES, "klt_level": klt.LEVEL_LAUNCHES,
-                "extract": klt.EXTRACT_LAUNCHES, "lk": klt.LK_LAUNCHES}
-    per_step = {"fast": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0}
+    launches = {"fast": fast.KERNEL_LAUNCHES, "fast_cand": fast.CAND_LAUNCHES,
+                "klt_level": klt.LEVEL_LAUNCHES, "extract": klt.EXTRACT_LAUNCHES,
+                "lk": klt.LK_LAUNCHES}
+    per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
+                "lk": 0}
     _check(launches == {k: v * n_steps for k, v in per_step.items()},
            f"launch counts {launches} != {per_step} per step x {n_steps}")
     for r in results:  # repeat probe: same seed, same answer
@@ -476,23 +569,6 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
           f"median {np.median(times):.2f} ms/step over {n_steps} "
           f"(launches per step: {per_step})")
 
-    # The KLT stage: klt.track on the kernel path must make no host sync;
-    # then its time, host clock with a synchronise on each side, in turns
-    # with the same track running each level as the composed B2 + torch + B3.
-    kp = fast.detect(f0, fc.fast_threshold, fc.max_keypoints)
-    track = lambda: klt.track(f0, f1, kp.xy, valid=kp.valid, win=fc.klt_window,
-                              levels=fc.klt_levels, iters=fc.klt_iters,
-                              min_eig=fc.klt_min_eig)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        flow = track()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-
-    def composed_level(*args, n_chunks, use_kernel):
-        return klt.track_level_composed(*args, n_chunks, use_kernel=True)
-
     def stage_ms(fn, reps: int = 7) -> list:
         out = []
         for _ in range(reps):
@@ -502,6 +578,40 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3)
         return out
+
+    # The detect stage: fast.detect on the kernel path (the fused candidate
+    # kernel, then the torch second stage) must make no host sync and give
+    # the keypoints of the route before it (the dense kernel, then the torch
+    # first stage); then both timed in turns, host clock with a synchronise
+    # on each side.
+    detect = lambda: fast.detect(f0, fc.fast_threshold, fc.max_keypoints)
+    dense_route = lambda: fast.top_k_keypoints(
+        fast.fast_score_map_kernel(f0, fc.fast_threshold, nms=True), fc.max_keypoints)
+    kp = no_sync(detect)
+    kp_dense = dense_route()
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(kp, kp_dense)),
+           "detect: the fused route's keypoints differ from the dense route's")
+    det = {"fused": [], "dense": []}
+    for turn in ("fused", "dense", "dense", "fused"):
+        det[turn] += stage_ms(detect if turn == "fused" else dense_route)
+    detect_ms = float(np.median(det["fused"]))
+    dense_ms = float(np.median(det["dense"]))
+    print(f"slice: detect stage (fast.detect) {detect_ms:.3f} ms on the fused kernel "
+          f"path, no host sync; {dense_ms:.3f} ms by the dense kernel and the torch "
+          f"first stage; same keypoints ({int(kp.valid.sum())} valid); median of "
+          f"{len(det['fused'])} each, in turns")
+
+    # The KLT stage: klt.track on the kernel path must make no host sync;
+    # then its time, host clock with a synchronise on each side, in turns
+    # with the same track running each level as the composed B2 + torch + B3.
+    track = lambda: klt.track(f0, f1, kp.xy, valid=kp.valid, win=fc.klt_window,
+                              levels=fc.klt_levels, iters=fc.klt_iters,
+                              min_eig=fc.klt_min_eig)
+    flow = no_sync(track)
+
+    def composed_level(*args, n_chunks, use_kernel):
+        return klt.track_level_composed(*args, n_chunks, use_kernel=True)
 
     stage = {"kernel": [], "composed": []}
     for turn in ("kernel", "composed", "composed", "kernel"):
@@ -549,6 +659,9 @@ def phase_degenerate(dev) -> None:
 KERNELS = {
     "fast": ("epivo_tpu_torch/csrc/fast.cu",
              "epivo_tpu/frontend/pallas_fast.py:33"),
+    "fast_cand": ("epivo_tpu_torch/csrc/fast.cu",
+                  "epivo_tpu/frontend/pallas_fast.py:33; "
+                  "epivo_tpu/frontend/fast.py:122"),
     "klt_level": ("epivo_tpu_torch/csrc/klt_level.cu",
                   "epivo_tpu/frontend/pallas_klt.py:211; "
                   "epivo_tpu/frontend/pallas_klt.py:75"),

@@ -35,6 +35,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # img, out, B, H, W, threshold, nms, stream
     "epivo_fast_score": (_P, _P, _I, _I, _I, _F, _I, _P),
+    # img, cand_val, cand_idx, B, H, W, threshold, nms, stream
+    "epivo_fast_candidates": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     # img, oy, ox, out, B, H, W, K, S, stream
     "epivo_extract_windows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # tgt, T, Ix, Iy, q0, q_out, err, K, S, win, iters, eps, hi, stream

@@ -13,8 +13,9 @@
 // coalesced read from the image and one coalesced write to the output.
 // The TPU kernel's image-in-VMEM staging, rotate compaction, S <= 128 limit
 // and VMEM-fit fallback exist only for the TPU and do not come across.
-// Origins must lie in [0, H - S] x [0, W - S]; the wrapper checks that.
-// A copy: bit-exact.
+// Origins are clamped to [0, H - S] x [0, W - S] here, as the reference
+// clips them and jax.lax.dynamic_slice clamps them, so the wrapper needs no
+// host-side check. A copy: bit-exact.
 
 #include <cuda_runtime.h>
 
@@ -27,8 +28,8 @@ __global__ void extract_windows_kernel(const float* __restrict__ img,
                                        int K, int S) {
   const int k = blockIdx.x;
   const int b = blockIdx.y;
-  const int y0 = oy[b * K + k];
-  const int x0 = ox[b * K + k];
+  const int y0 = min(max(oy[b * K + k], 0), H - S);
+  const int x0 = min(max(ox[b * K + k], 0), W - S);
   const float* src = img + (size_t)b * H * W + (size_t)y0 * W + x0;
   float* dst = out + ((size_t)b * K + k) * S * S;
   for (int i = threadIdx.x; i < S * S; i += blockDim.x) {

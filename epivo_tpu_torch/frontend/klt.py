@@ -53,10 +53,13 @@ class FlowResult(NamedTuple):
 def extract_windows_plain(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
                           size: int) -> torch.Tensor:
     """[B, H, W] image, [B, K] integer origins -> [B, K, size, size] windows
-    ``img[b, oy:oy+size, ox:ox+size]`` (plain version, a gather)."""
+    ``img[b, oy:oy+size, ox:ox+size]`` (plain version, a gather). Origins
+    are first clamped to [0, H - size] x [0, W - size], as the reference
+    clips them and ``jax.lax.dynamic_slice`` clamps them."""
+    H, W = img.shape[-2:]
     r = torch.arange(size, device=img.device)
-    rows = (oy.long()[..., None] + r)[..., :, None]  # [B, K, S, 1]
-    cols = (ox.long()[..., None] + r)[..., None, :]  # [B, K, 1, S]
+    rows = (oy.long().clamp(0, H - size)[..., None] + r)[..., :, None]  # [B, K, S, 1]
+    cols = (ox.long().clamp(0, W - size)[..., None] + r)[..., None, :]  # [B, K, 1, S]
     b = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
     return img[b, rows, cols]
 
@@ -64,8 +67,8 @@ def extract_windows_plain(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
 def extract_windows_kernel(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
                            size: int) -> torch.Tensor:
     """Window extraction by the CUDA kernel; same contract as
-    :func:`extract_windows_plain`. Origins must lie in
-    [0, H - size] x [0, W - size]; the wrapper raises otherwise."""
+    :func:`extract_windows_plain`, origins clamped in the kernel. Makes no
+    host sync."""
     global EXTRACT_LAUNCHES
     if not img.is_cuda:
         raise ValueError("extract_windows_kernel needs a CUDA tensor")
@@ -81,8 +84,6 @@ def extract_windows_kernel(img: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor
         raise ValueError(f"window size {S} does not fit a {H}x{W} image")
     if oy.device != img.device or ox.device != img.device:
         raise ValueError("origins must be on the image's device")
-    if bool(((oy < 0) | (oy > H - S) | (ox < 0) | (ox > W - S)).any()):
-        raise ValueError("window origins out of bounds")
     K = oy.shape[1]
     img = img.contiguous()
     oy32 = oy.to(torch.int32).contiguous()

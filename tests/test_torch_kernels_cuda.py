@@ -8,7 +8,8 @@ decision is made inside the fixture, never at import). On a GPU machine:
 (``--noconftest``: tests/conftest.py imports JAX, which the GPU machine
 need not have.)
 
-Tolerances: FAST (B1) and window extraction (B2) bit-exact; LK (B3)
+Tolerances: FAST (B1), the fused FAST candidate kernel (score, NMS and
+the first top-k stage) and window extraction (B2) bit-exact; LK (B3)
 |dq| <= 1e-3 px and |derr| <= 1e-3 + 1e-4 |err|: the kernel samples the
 patch bit for bit like the plain version, but sums it in another order.
 The level kernel (B2 + B3 fused) is held to the same tolerances on the new
@@ -52,6 +53,36 @@ def test_fast_kernel_bit_exact(dev, shape):
         assert torch.equal(out, ref)
 
 
+def _smoothed_int_image(shape, seed, dev):
+    img = _int_image(shape, seed, dev)
+    return torch.round((img + img.roll(1, -2) + img.roll(1, -1)) / 3.0)
+
+
+@pytest.mark.parametrize("threshold", [20.0, 0.0, -3.0])
+@pytest.mark.parametrize("shape", [(376, 1241), (263, 301), (3, 200, 300)])
+def test_fast_candidates_kernel_bit_exact(dev, shape, threshold):
+    # Integer scores tie often; at threshold 0 and below every interior
+    # pixel scores, and below 0 negative and zero scores take part.
+    img = _smoothed_int_image(shape, 2, dev)
+    for nms in (False, True):
+        ref = fast.fast_score_map(img, threshold)
+        if nms:
+            ref = fast.nms3(ref)
+        ref_v, ref_i = fast.block_candidates(ref)
+        val, idx = fast.fast_candidates_kernel(img, threshold, nms=nms)
+        torch.cuda.synchronize()
+        assert torch.equal(val, ref_v) and torch.equal(idx, ref_i)
+
+
+def test_detect_kernel_matches_plain(dev):
+    img = _smoothed_int_image((376, 1241), 3, dev)
+    kp_k = fast.detect(img, 20.0, 512)
+    kp_p = fast.detect(img, 20.0, 512, use_kernel=False)
+    torch.cuda.synchronize()
+    for a, b in zip(kp_k, kp_p):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("B,S", [(1, 34), (8, 46), (2, 21)])
 def test_extract_kernel_exact(dev, B, S):
     g = torch.Generator().manual_seed(1)
@@ -62,8 +93,11 @@ def test_extract_kernel_exact(dev, B, S):
     out = klt.extract_windows_kernel(img, oy, ox, S)
     torch.cuda.synchronize()
     assert torch.equal(out, klt.extract_windows_plain(img, oy, ox, S))
-    with pytest.raises(ValueError, match="out of bounds"):
-        klt.extract_windows_kernel(img, oy + H, ox, S)
+    # Out-of-range origins clamp to [0, H - S] x [0, W - S] in both.
+    oy, ox = oy + torch.randint(-H, H, oy.shape, generator=g).to(dev), ox - W // 2
+    out = klt.extract_windows_kernel(img, oy, ox, S)
+    torch.cuda.synchronize()
+    assert torch.equal(out, klt.extract_windows_plain(img, oy, ox, S))
 
 
 def _level_inputs(dev, S, level):
@@ -129,8 +163,9 @@ def test_level_kernel_matches_plain(dev, S, B, n_chunks):
     assert bool(((ok_k == ok_p) | near).all())
 
 
-def test_vo_step_launches_each_kernel(dev):
-    H, W = 96, 128
+def _vo_step_launches(dev, H, W):
+    """Kernel launches of one vo_step on a small corridor pair: (fast,
+    fast_cand, extract, lk, klt_level)."""
     K = np.array([[110.0, 0, W / 2], [0, 110.0, H / 2], [0, 0, 1.0]])
     frames, _, _ = photoreal.corridor_sequence(2, H=H, W=W, K=K, speed=0.45, seed=11)
     f0, f1 = (torch.from_numpy(np.asarray(f)).to(dev) for f in frames)
@@ -139,10 +174,20 @@ def test_vo_step_launches_each_kernel(dev):
         frontend=config.FrontendConfig(fast_threshold=12.0, max_keypoints=128,
                                        klt_levels=3),
         ransac=config.RansacConfig(n_hyp=128), lm=config.LMConfig(n_points=16))
-    counts = lambda: (fast.KERNEL_LAUNCHES, klt.EXTRACT_LAUNCHES, klt.LK_LAUNCHES,
-                      klt.LEVEL_LAUNCHES)
+    counts = lambda: (fast.KERNEL_LAUNCHES, fast.CAND_LAUNCHES, klt.EXTRACT_LAUNCHES,
+                      klt.LK_LAUNCHES, klt.LEVEL_LAUNCHES)
     before = counts()
     res = vo.vo_step(f0, f1, torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 0, 3)
     assert bool(torch.isfinite(res.T).all())
+    return tuple(a - b for a, b in zip(counts(), before))
+
+
+def test_vo_step_launches_each_kernel(dev):
+    # Below the two-stage size (H*W < 65536): the dense FAST kernel.
+    assert _vo_step_launches(dev, 96, 128) == (1, 0, 0, 0, 3)
+
+
+def test_vo_step_two_stage_launches_fused_fast(dev):
+    # Above it: the fused candidate kernel, and no dense map.
+    assert _vo_step_launches(dev, 256, 320) == (0, 1, 0, 0, 3)

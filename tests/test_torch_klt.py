@@ -67,6 +67,24 @@ def test_extract_windows_exact(size):
                                           imgs[b, y:y + size, x:x + size].numpy())
 
 
+def test_extract_windows_plain_clamps_like_dynamic_slice():
+    # Out-of-range origins clamp to [0, H - S] x [0, W - S]. dynamic_slice
+    # clamps a start beyond the upper end the same way; a negative start it
+    # reads from the end, so it gets the lower clip first, as the
+    # reference's _extract_windows applies it.
+    rng = np.random.default_rng(9)
+    img = rng.uniform(0, 255, (60, 90)).astype(np.float32)
+    size = 34
+    oy = np.array([[-5, 0, 26, 27, 100, -40, 13]])
+    ox = np.array([[-3, 56, 57, 200, 10, -1, 90]])
+    out = tklt.extract_windows_plain(torch.from_numpy(img)[None], torch.from_numpy(oy),
+                                     torch.from_numpy(ox), size)
+    for k in range(oy.shape[1]):
+        start = (max(int(oy[0, k]), 0), max(int(ox[0, k]), 0))
+        ref = jax.lax.dynamic_slice(jnp.asarray(img), start, (size, size))
+        np.testing.assert_array_equal(out[0, k].numpy(), np.asarray(ref))
+
+
 def test_grad_batch_and_sampler_match_reference():
     rng = np.random.default_rng(2)
     S, win, K = 34, 21, 16
