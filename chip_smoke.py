@@ -20,10 +20,23 @@ Phases, each reported on its own line:
    detect stage and the KLT stage, checking that fast.detect and klt.track
    make no host sync, and checking the pose against the ground truth and
    against the plain path;
-5. degenerate: textureless frames must still give a finite pose.
+5. degenerate: textureless frames must still give a finite pose;
+6. batched: vo_step_batched on B = 8 copies of the corridor pair (the
+   throughput mode): one fast_cand and four klt_level launches per call,
+   as a single step has, no host sync in the whole call, every lane
+   against the ground truth, the kernel path against the plain path and
+   lane 0 against a single vo_step with the same samples, a repeat probe,
+   pairs/s in turns with single steps, and fast_cand / klt_level at B = 8
+   against their plain versions with device time and bound;
+7. ba: ba_windows on the 512 windows of bench_ba_workload.npz (the bench's
+   BA workload): no host sync, the card against the port's CPU path, the
+   same ATen operators at W = 64 and W = 512 (no loop over windows), and
+   windows/s and LM iterations/s.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failed check raises and
+Before the last two lines, one JSON object holds the batched and BA
+phases' numbers; the line before the last is a JSON object with one entry
+per kernel (launches per single step); the last line is {"ok": true,
+"device": {...}}. Any failed check raises and
 exits non-zero without that line. Imports nothing of JAX.
 """
 
@@ -34,6 +47,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,11 +66,33 @@ OK_NEAR_RTOL = 1e-4
 STEP_R_TOL, STEP_DIR_TOL = 2e-3, 2e-3
 # Pose against the corridor's ground truth.
 GT_R_TOL, GT_DIR_TOL = 0.01, 0.1
+# Pairs per batched call (bench.py's batched mode).
+N_PAIRS = 8
+# Windowed BA, card against the port's CPU path, at the tolerances of the
+# CPU tests (tests/test_torch_ba.py): rotations, translation directions,
+# accepted steps, and the final residual norm (rtol, atol); the share of
+# windows whose poses must meet them (see phase_ba).
+BA_R_TOL, BA_DIR_TOL, BA_ACC_TOL = 1e-4, 3e-3, 8
+BA_R_RTOL, BA_R_ATOL = 0.2, 1e-5
+BA_WITHIN = 0.95
+# Device activities per BA call at W = 64 against W = 512: cuBLAS picks its
+# GEMM / GEMV kernels (and split-K passes) by shape; a loop over windows
+# would multiply the count by 8.
+BA_DEVICE_RTOL = 0.01
 
 
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def host_ms(fn) -> float:
+    """Host-clock ms of fn() with a synchronise on each side."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -176,6 +212,66 @@ def lk_steps(tgt_wins, T, Ix, Iy, q0, win: int, iters: int, eps: float) -> int:
         q = torch.where(done[:, None], q, (q + step).clamp(0.0, hi))
         done = done | (torch.linalg.norm(step, dim=-1) < eps)
     return steps
+
+
+def cand_work(imgs: torch.Tensor) -> dict:
+    """The fused candidate kernel's work on frames [B, H, W]: the bytes it
+    must move, the operations these frames need (the compass test, the
+    scores of the sides that pass it, NMS and the selection rounds), and
+    the counts they come from."""
+    from epivo_tpu_torch.frontend import fast
+
+    B, Hh, Ww = imgs.shape
+    n_int = n_sides = rounds = 0
+    for img in imgs:
+        a, b = fast_work(img, FAST_T)
+        pv, _ = fast.block_candidates(fast.nms3(fast.fast_score_map(img, FAST_T)))
+        n_int, n_sides = n_int + a, n_sides + b
+        rounds += int((1 + (pv[:, 1:] != pv[:, :-1]).sum(-1)).sum())
+    nb = pv.shape[0]
+    score_ops = n_int * COMPASS_OPS + n_sides * ARC_OPS
+    return dict(nb=nb, n_int=n_int, n_sides=n_sides, rounds=rounds, score_ops=score_ops,
+                nbytes=B * Hh * Ww * 4 + B * nb * 8 * (4 + 4),
+                nops=score_ops + B * Hh * Ww * NMS_SEP_OPS + rounds * SELECT_OPS)
+
+
+def level_work(src, tgt, pts, guess, win: int, S: int, iters: int,
+               eps: float) -> tuple[int, int, int]:
+    """(bytes, operations, keypoint-steps) of one level-kernel launch on
+    [B, H, W] images and [B, K, 2] points, the LK steps counted as this
+    data takes them before each keypoint freezes."""
+    from epivo_tpu_torch.frontend import klt
+
+    B, Hl, Wl = src.shape
+    K, n = pts.shape[1], win * win
+    T, Ix, Iy, c_eff = klt._template(src, pts, win, S, use_kernel=False)
+    tgt_wins, _, q0 = klt._target(tgt, guess + (c_eff - pts), win, S, use_kernel=False)
+    steps = lk_steps(tgt_wins.reshape(-1, S, S), T.reshape(-1, win, win),
+                     Ix.reshape(-1, win, win), Iy.reshape(-1, win, win),
+                     q0.reshape(-1, 2), win, iters, eps)
+    scharr = ((win + 3) * (win + 1) + (win + 1) ** 2) * 2 * TAP3_OPS
+    nbytes = 2 * B * Hl * Wl * 4 + 2 * B * K * 2 * 4 + B * K * (2 * 4 + 1 + 4)
+    nops = (B * K * (scharr + n * (3 * SAMPLE_OPS + G_OPS + ERR_OPS))
+            + steps * n * LK_STEP_OPS)
+    return nbytes, nops, steps
+
+
+def level_launch(src, tgt, pts, guess, win: int, S: int, iters: int, eps: float,
+                 min_eig: float):
+    """A raw ctypes launch of the level kernel (one chunk of ``iters``
+    steps), for its device time; its outputs are discarded."""
+    from epivo_tpu_torch import _kernels
+
+    lib, stream = _kernels.lib(), torch.cuda.current_stream().cuda_stream
+    B, Hl, Wl = src.shape
+    K = pts.shape[1]
+    g_o = torch.empty_like(guess)
+    ok_o = torch.empty((B, K), dtype=torch.bool, device=src.device)
+    e_o = torch.empty((B, K), device=src.device)
+    return lambda: lib.epivo_track_level(
+        src.data_ptr(), tgt.data_ptr(), pts.data_ptr(), guess.data_ptr(),
+        g_o.data_ptr(), ok_o.data_ptr(), e_o.data_ptr(), B, Hl, Wl, K, S, win,
+        iters, 1, eps, min_eig, S - win - 1 - 1e-3, stream)
 
 
 def phase_device() -> tuple[str, str]:
@@ -313,11 +409,9 @@ def phase_kernels(f0, f1, cfg) -> dict:
                f"FAST candidate kernel differs from plain ({tuple(img.shape)})")
         err = max(err, float((k - p).abs().max()))
         cerr = max(cerr, float((kv - pv).abs().max()))
-    n_int, n_sides = fast_work(f0, thr)
-    pv, _ = fast.block_candidates(fast.nms3(fast.fast_score_map(f0, thr)))
-    rounds = int((1 + (pv[:, 1:] != pv[:, :-1]).sum(-1)).sum())
-    nb = pv.shape[0]
-    score_ops = n_int * COMPASS_OPS + n_sides * ARC_OPS
+    work = cand_work(f0[None])
+    n_int, n_sides, rounds, nb = (work[k] for k in ("n_int", "n_sides", "rounds", "nb"))
+    score_ops = work["score_ops"]
     naive_ops = (H - 6) * (W - 6) * FAST_NAIVE_OPS + H * W * NMS_OPS
     print(f"FAST work on frame 0: {n_int} interior pixels, {n_sides} compass-test "
           f"sides passed ({n_sides / n_int:.4f} per pixel), {nb} blocks, {rounds} "
@@ -345,8 +439,7 @@ def phase_kernels(f0, f1, cfg) -> dict:
     dev_ms, how = device_ms(lambda: lib.epivo_fast_candidates(
         f0.data_ptr(), cv.data_ptr(), ci.data_ptr(), 1, H, W, thr, 1, stream),
         "fast_candidates_kernel")
-    cand_bytes = H * W * 4 + nb * 8 * (4 + 4)
-    cand_ops = score_ops + H * W * NMS_SEP_OPS + rounds * SELECT_OPS
+    cand_bytes, cand_ops = work["nbytes"], work["nops"]
     b_ms, b_by = bound(cand_bytes, cand_ops)
     naive_ms, naive_by = bound(cand_bytes, naive_ops + nb * 8 * SELECT_OPS)
     tt = timed_in_turns({
@@ -457,23 +550,13 @@ def phase_kernels(f0, f1, cfg) -> dict:
         args = (src, tgt, pts, guess, win, margin, iters, eps, min_eig, 1)
         dg, de, n_near = check_level(args, min_eig)
         err_g, err_e = max(err_g, dg), max(err_e, de)
-        B, Hl, Wl = src.shape
-        K, n = pts.shape[1], win * win
-        g_o, ok_o, e_o = (torch.empty_like(guess), torch.empty(pts.shape[:2], dtype=torch.bool, device=dev),
-                          torch.empty(pts.shape[:2], device=dev))
-        raw = lambda: lib.epivo_track_level(
-            src.data_ptr(), tgt.data_ptr(), pts.data_ptr(), guess.data_ptr(),
-            g_o.data_ptr(), ok_o.data_ptr(), e_o.data_ptr(), B, Hl, Wl, K, S, win,
-            iters, 1, eps, min_eig, S - win - 1 - 1e-3, stream)
-        dev_ms, how = device_ms(raw, "track_level_kernel")
-        T, Ix, Iy, c_eff = klt._template(src[0], pts[0], win, S, use_kernel=False)
-        tgt_wins, _, q0 = klt._target(tgt[0], guess[0] + (c_eff - pts[0]), win, S,
-                                      use_kernel=False)
-        steps = lk_steps(tgt_wins, T, Ix, Iy, q0, win, iters, eps)
-        scharr = ((win + 3) * (win + 1) + (win + 1) ** 2) * 2 * TAP3_OPS
-        b_ms, b_by = bound(
-            2 * B * Hl * Wl * 4 + 2 * B * K * 2 * 4 + B * K * (2 * 4 + 1 + 4),
-            K * (scharr + n * (3 * SAMPLE_OPS + G_OPS + ERR_OPS)) + steps * n * LK_STEP_OPS)
+        Hl, Wl = src.shape[-2:]
+        K = pts.shape[1]
+        dev_ms, how = device_ms(
+            level_launch(src, tgt, pts, guess, win, S, iters, eps, min_eig),
+            "track_level_kernel")
+        nbytes, nops, steps = level_work(src, tgt, pts, guess, win, S, iters, eps)
+        b_ms, b_by = bound(nbytes, nops)
         t = timed_in_turns({
             "kernel": lambda: klt.track_level_kernel(*args),
             "composed": lambda: klt.track_level_composed(*args, use_kernel=True),
@@ -570,14 +653,7 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
           f"(launches per step: {per_step})")
 
     def stage_ms(fn, reps: int = 7) -> list:
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
+        return [host_ms(fn) for _ in range(reps)]
 
     # The detect stage: fast.detect on the kernel path (the fused candidate
     # kernel, then the torch second stage) must make no host sync and give
@@ -656,6 +732,261 @@ def phase_degenerate(dev) -> None:
           f"reverted={bool(r.reverted)} finite pose")
 
 
+def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
+    """vo_step_batched on B copies of the corridor pair, lane b's source
+    frame brightened by b * 1e-5 (as bench.py's batched mode does): launch
+    counts, host syncs, poses, the plain path, a single step, throughput,
+    and fast_cand / klt_level at B."""
+    from epivo_tpu_torch import _kernels, ransac
+    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.pipeline import vo
+
+    dev = f0.device
+    fc = cfg.frontend
+    eps = torch.arange(n_pairs, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
+    img0 = (f0[None] + eps).contiguous()
+    img1 = f1[None].expand(n_pairs, -1, -1).contiguous()
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    batched = lambda **kw: vo.vo_step_batched(img0, img1, gen(), cfg, **kw)
+
+    first = batched()  # warm-up
+    torch.cuda.synchronize()
+    fast.KERNEL_LAUNCHES = fast.CAND_LAUNCHES = 0
+    klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
+    res = no_sync(batched)
+    torch.cuda.synchronize()
+    launches = {"fast": fast.KERNEL_LAUNCHES, "fast_cand": fast.CAND_LAUNCHES,
+                "klt_level": klt.LEVEL_LAUNCHES, "extract": klt.EXTRACT_LAUNCHES,
+                "lk": klt.LK_LAUNCHES}
+    per_call = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
+                "lk": 0}
+    _check(launches == per_call,
+           f"batched launch counts {launches} != {per_call} per call")
+    _check(torch.equal(res.T, first.T) and torch.equal(res.n_inliers, first.n_inliers),
+           "repeated vo_step_batched changed its result")
+    _check(res.T.shape == (n_pairs, 4, 4) and bool(torch.isfinite(res.T).all())
+           and bool(torch.isfinite(res.points).all()), "batched poses not finite")
+    T_gt = np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
+    gt_errs = [_pose_err(T, T_gt) for T in res.T.cpu().numpy()]
+    r_gt, d_gt = max(e[0] for e in gt_errs), max(e[1] for e in gt_errs)
+    _check(r_gt < GT_R_TOL and d_gt < GT_DIR_TOL,
+           f"batched poses vs ground truth: max |dR|_F={r_gt:.4g}, dir={d_gt:.4g}")
+
+    # The same samples through the kernel path, the plain path and, for
+    # lane 0 (the unbrightened pair), a single vo_step.
+    kp = fast.detect(img0, fc.fast_threshold, fc.max_keypoints)
+    flow = klt.track(img0, img1, kp.xy, valid=kp.valid, win=fc.klt_window,
+                     levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig)
+    samples = ransac._sample_indices(gen(), cfg.ransac.hypotheses(), fc.max_keypoints,
+                                     flow.status, device=dev, lead=(n_pairs,))
+    r_k = batched(ransac_samples=samples)
+    r_p = batched(ransac_samples=samples, use_kernel=False)
+    one = vo.vo_step(f0, f1, None, cfg, ransac_samples=samples[0])
+    torch.cuda.synchronize()
+    kp_errs = [_pose_err(a, b) for a, b in zip(r_k.T.cpu().numpy(), r_p.T.cpu().numpy())]
+    r_kp, d_kp = max(e[0] for e in kp_errs), max(e[1] for e in kp_errs)
+    _check(r_kp < STEP_R_TOL and d_kp < STEP_DIR_TOL,
+           f"batched kernel vs plain path: max |dR|_F={r_kp:.4g}, dir={d_kp:.4g}")
+    r_1, d_1 = _pose_err(r_k.T[0].cpu().numpy(), one.T.cpu().numpy())
+    _check(r_1 < STEP_R_TOL and d_1 < STEP_DIR_TOL,
+           f"batched lane 0 vs single step: |dR|_F={r_1:.4g}, dir={d_1:.4g}")
+    print(f"batched: vo_step_batched B={n_pairs} {H}x{W} launches per call {launches} "
+          f"(a single step's), no host sync, repeat probe equal; every lane vs ground "
+          f"truth max |R-R_gt|_F={r_gt:.4g} dir_err={d_gt:.4g}; kernel vs plain path, "
+          f"same samples, max |dR|_F={r_kp:.3g} dir={d_kp:.3g}; lane 0 vs a single "
+          f"vo_step, same samples, |dR|_F={r_1:.3g} dir={d_1:.3g}; n_inliers "
+          f"{[int(x) for x in r_k.n_inliers]}")
+
+    # Throughput: batched calls in turns with single steps.
+    times = {"batched": [], "single": []}
+    single = lambda: vo.vo_step(f0, f1, gen(), cfg)
+    for turn in ("batched", "single", "single", "batched"):
+        times[turn] += [host_ms(batched if turn == "batched" else single)
+                        for _ in range(3)]
+    ms_b, ms_1 = float(np.median(times["batched"])), float(np.median(times["single"]))
+    pairs_s, single_pairs_s = n_pairs / ms_b * 1e3, 1e3 / ms_1
+    print(f"batched: {pairs_s:.2f} pairs/s at B={n_pairs} (median {ms_b:.2f} ms per call "
+          f"over {len(times['batched'])}); single step {single_pairs_s:.2f} pairs/s "
+          f"(median {ms_1:.2f} ms over {len(times['single'])}); in turns, host clock, "
+          f"synchronised")
+
+    # fast_cand at B: bit-equal to its plain version; device time and bound.
+    thr = FAST_T
+    kv, ki = fast.fast_candidates_kernel(img0, thr, nms=True)
+    pv, pi = fast.block_candidates(fast.nms3(fast.fast_score_map(img0, thr)))
+    torch.cuda.synchronize()
+    _check(torch.equal(kv, pv) and torch.equal(ki, pi),
+           f"FAST candidate kernel differs from plain at B={n_pairs}")
+    work = cand_work(img0)
+    lib, stream = _kernels.lib(), torch.cuda.current_stream().cuda_stream
+    cand_ms, cand_how = device_ms(lambda: lib.epivo_fast_candidates(
+        img0.data_ptr(), kv.data_ptr(), ki.data_ptr(), n_pairs, H, W, thr, 1, stream),
+        "fast_candidates_kernel")
+    cand_b, cand_by = bound(work["nbytes"], work["nops"])
+    tt = timed_in_turns({
+        "kernel": lambda: fast.fast_candidates_kernel(img0, thr, nms=True),
+        "plain": lambda: fast.block_candidates(fast.nms3(fast.fast_score_map(img0, thr)))},
+        turns=1, reps=5, warmup=1)
+    print(f"batched: kernel fast_cand B={n_pairs} bit-equal, wrapper {tt['kernel']:.4f} ms, "
+          f"device {cand_ms:.4f} ms ({cand_how}), bound {cand_b:.4f} ms ({cand_by}; "
+          f"{work['nbytes']} bytes, {work['nops']} operations, {work['rounds']} selection "
+          f"rounds), plain {tt['plain']:.4f} ms")
+
+    # klt_level at B on the inputs klt.track gives it: top and finest level.
+    win, iters, eps_lk, min_eig = fc.klt_window, fc.klt_iters, 0.01, fc.klt_min_eig
+    levels = level_inputs(img0, img1, kp, cfg)
+    level = {}
+    for S, (src, tgt, pts, guess) in ((46, levels[0]), (34, levels[-1])):
+        args = (src, tgt, pts, guess, win, (S - win - 1) // 2, iters, eps_lk, min_eig, 1)
+        dg, de, n_near = check_level(args, min_eig)
+        lvl_ms, lvl_how = device_ms(
+            level_launch(src, tgt, pts, guess, win, S, iters, eps_lk, min_eig),
+            "track_level_kernel")
+        nbytes, nops, steps = level_work(src, tgt, pts, guess, win, S, iters, eps_lk)
+        lvl_b, lvl_by = bound(nbytes, nops)
+        tt_l = timed_in_turns({
+            "kernel": lambda: klt.track_level_kernel(*args),
+            "plain": lambda: klt.track_level_composed(*args, use_kernel=False)},
+            turns=1, reps=5, warmup=1)
+        level[S] = dict(ms=tt_l["kernel"], device_ms=lvl_ms, plain_ms=tt_l["plain"],
+                        bound_ms=lvl_b, bound_by=lvl_by, max_dg=dg)
+        print(f"batched: kernel klt_level B={n_pairs} S={S} K={pts.shape[1]} on "
+              f"{src.shape[1]}x{src.shape[2]} max|dg|={dg:.3g} px max|derr|={de:.3g}, ok at "
+              f"the threshold: {n_near}; wrapper {tt_l['kernel']:.4f} ms, device "
+              f"{lvl_ms:.4f} ms ({lvl_how}), bound {lvl_b:.4f} ms ({lvl_by}, {steps} "
+              f"keypoint-steps), plain {tt_l['plain']:.4f} ms")
+    return dict(
+        launches=launches, pairs_s=pairs_s, single_pairs_s=single_pairs_s,
+        ms_per_call=ms_b, single_ms=ms_1,
+        fast_cand=dict(ms=tt["kernel"], device_ms=cand_ms, plain_ms=tt["plain"],
+                       bound_ms=cand_b, bound_by=cand_by),
+        klt_level=level)
+
+
+def work_counts(fn) -> tuple[dict, int]:
+    """One call of fn() under torch.profiler: the ATen operators it issues
+    from the host, by name, and the device activities (kernels, copies)
+    they run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, n_device = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            n_device += e.count
+        elif e.key.startswith("aten::"):
+            ops[e.key] = ops.get(e.key, 0) + e.count
+    _check(n_device > 0, "the profiler saw no device activity")
+    return ops, n_device
+
+
+def _rot_dir(T: torch.Tensor):
+    T = T.double()
+    t = T[..., :3, 3]
+    return T[..., :3, :3], t / torch.linalg.norm(t, dim=-1, keepdim=True)
+
+
+def phase_ba(dev) -> dict:
+    """ba_windows on all windows of bench_ba_workload.npz at the bench's BA
+    configuration: finite, no host sync, the card against the port's CPU
+    path, the same device work at W = 64 and all windows, and windows/s."""
+    from epivo_tpu_torch.pipeline import ba, config
+
+    z = np.load(Path(__file__).resolve().parent / "bench_ba_workload.npz")
+    spec = ba.mono_window_spec(3)
+    _check(np.array_equal(spec.reps, z["reps"]), "workload reps differ from the spec")
+    cfg = config.BAConfig(lm=config.LMConfig(n_points=32, max_iters=30,
+                                             revert_r_norm=1e-2),
+                          window_size=3, stride=2)
+    keys = ("T0s", "p", "p_t", "wreps", "pmask")
+    cpu = {k: torch.from_numpy(z[k]) for k in keys}
+    gpu = {k: v.to(dev) for k, v in cpu.items()}
+    n_win = cpu["T0s"].shape[0]
+
+    def run(d, n=None):
+        return ba.ba_windows(d["T0s"][:n], spec, d["p"][:n], d["p_t"][:n],
+                             wreps=d["wreps"][:n], pmask=d["pmask"][:n], config=cfg)
+
+    run(gpu)  # warm-up
+    out = no_sync(lambda: run(gpu))
+    torch.cuda.synchronize()
+    _check(out.T_opt.shape == (n_win, 2, 4, 4) and bool(torch.isfinite(out.T_opt).all()),
+           "BA T_opt not finite")
+    ref = run(cpu)
+
+    # Card vs CPU. The energy and the reverted set on every window. Poses
+    # and accepted steps at the CPU tests' tolerances on BA_WITHIN of the
+    # windows: on the rest rounding alone moves the optimum along a flat
+    # valley. The control line below measures that: the CPU against
+    # itself with the initial poses perturbed by 1e-7 (about one float32
+    # rounding), and the spread of the workload's copies of each window.
+    R_c, dir_c = _rot_dir(ref.T_opt)
+
+    def deviations(res):
+        R_x, dir_x = _rot_dir(res.T_opt.cpu())
+        dR = (R_x - R_c).abs().amax((1, 2, 3))
+        ddir = (dir_x - dir_c).abs().amax((1, 2))
+        dacc = (res.n_accepted.cpu() - ref.n_accepted).abs()
+        within = (dR <= BA_R_TOL) & (ddir <= BA_DIR_TOL) & (dacc <= BA_ACC_TOL)
+        return dR, ddir, dacc, within
+
+    dR, ddir, dacc, within = deviations(out)
+    g = torch.Generator().manual_seed(SEED)
+    jitter = 1e-7 * torch.randn(cpu["T0s"].shape, generator=g)
+    *_, within_ctl = deviations(run({**cpu, "T0s": cpu["T0s"] + jitter}))
+    n_unique = json.loads(str(z["workload"]))["ba"]["unique_windows"]
+    copies = lambda x: x.reshape((n_win // n_unique, n_unique) + x.shape[1:])
+    spread = lambda x: float((copies(x) - copies(x)[:1]).abs().max())
+    print(f"ba: control on the CPU: initial poses + 1e-7 keep {int(within_ctl.sum())} "
+          f"of {n_win} windows within the tolerances; the workload's {n_win // n_unique} "
+          f"copies of each window (1e-6 jitter) spread by |dR| {spread(R_c):.3g}, dir "
+          f"{spread(dir_c):.3g}")
+    r_g, r_c = out.r_norm.cpu(), ref.r_norm
+    _check(bool(((r_g - r_c).abs() <= BA_R_ATOL + BA_R_RTOL * r_c.abs()).all()),
+           f"BA r_norm card vs CPU: max diff {float((r_g - r_c).abs().max()):.3g}")
+    _check(torch.equal(out.reverted.cpu(), ref.reverted), "BA reverted sets differ")
+    share = float(within.double().mean())
+    _check(share >= BA_WITHIN, f"BA card vs CPU: {share:.4f} of the windows within "
+           f"the tolerances (|dR| <= {BA_R_TOL}, dir <= {BA_DIR_TOL}, n_accepted <= "
+           f"{BA_ACC_TOL}), fewer than {BA_WITHIN}")
+    dT = float((out.T_opt.cpu() - ref.T_opt).abs().max())
+    print(f"ba: ba_windows W={n_win} ws=3 N=32 30 iterations, no host sync, finite; "
+          f"card vs CPU: reverted equal ({int(ref.reverted.sum())} reverted), max "
+          f"|dr_norm| {float((r_g - r_c).abs().max()):.3g} (r_norm up to "
+          f"{float(r_c.max()):.3g}); {int(within.sum())} of {n_win} windows within "
+          f"the tolerances; median |dR| {float(dR.median()):.3g}, dir "
+          f"{float(ddir.median()):.3g}; max |dR| {float(dR.max()):.3g}, dir "
+          f"{float(ddir.max()):.3g}, n_accepted {float(dacc.max()):.0f}, |dT_opt| {dT:.3g}")
+
+    # No loop over windows: the same operators at W = 64 and all windows,
+    # and as many device activities up to cuBLAS's choice of GEMM / GEMV
+    # kernels by shape (and a few between repeats of one call).
+    (ops_small, dev_small), (ops_all, dev_all) = (work_counts(lambda: run(gpu, 64)),
+                                                  work_counts(lambda: run(gpu)))
+    n_small, n_all = sum(ops_small.values()), sum(ops_all.values())
+    diff = {k: (ops_small.get(k, 0), ops_all.get(k, 0))
+            for k in set(ops_small) | set(ops_all) if ops_small.get(k, 0) != ops_all.get(k, 0)}
+    _check(not diff, f"BA operators differ between W=64 and W={n_win}: {diff}")
+    _check(abs(dev_all - dev_small) <= BA_DEVICE_RTOL * dev_small,
+           f"BA device activities: {dev_small} at W=64, {dev_all} at W={n_win}")
+
+    ms = [host_ms(lambda: run(gpu)) for _ in range(7)]
+    per_call = float(np.median(ms))
+    win_s = n_win / per_call * 1e3
+    print(f"ba: {n_all} ATen operators per call at W=64 and W={n_win}, device "
+          f"activities {dev_small} and {dev_all}; {win_s:.1f} windows/s, "
+          f"{win_s * cfg.lm.max_iters:.1f} LM iterations/s (median {per_call:.2f} ms "
+          f"per call over {len(ms)}, host clock, synchronised)")
+    return dict(windows_s=win_s, iters_s=win_s * cfg.lm.max_iters, ms_per_call=per_call,
+                operators=n_all, device_activities=dev_all, within=int(within.sum()),
+                within_control=int(within_ctl.sum()))
+
+
 KERNELS = {
     "fast": ("epivo_tpu_torch/csrc/fast.cu",
              "epivo_tpu/frontend/pallas_fast.py:33"),
@@ -673,6 +1004,7 @@ KERNELS = {
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     name, _ = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -681,6 +1013,10 @@ def main() -> int:
     report = phase_kernels(f0, f1, cfg)
     launches = phase_slice(f0, f1, gt, cfg)
     phase_degenerate(dev)
+    batched = phase_batched(f0, f1, gt, cfg)
+    ba_report = phase_ba(dev)
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"batched": batched, "ba": ba_report}))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], **report[k]}

@@ -17,6 +17,16 @@ def set_f32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def constant(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant (nested lists or a numpy array) on ``device``.
+
+    ``torch.tensor(data, device="cuda")`` copies with a stream sync; this
+    builds the tensor on the host and copies it with ``non_blocking=True``,
+    so the batched entry points stay free of host syncs.
+    """
+    return torch.as_tensor(data, dtype=dtype).to(device, non_blocking=True)
+
+
 def kernel_wanted(x: torch.Tensor, use_kernel: bool | None) -> bool:
     """Resolve a wrapper's ``use_kernel`` switch against its input.
 

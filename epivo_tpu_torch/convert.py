@@ -1,8 +1,9 @@
 """Carry state across from the JAX package, without importing it.
 
-The two-view slice has no learned weights; what comes across is the
-configuration and, for parity runs, the RANSAC minimal samples (the
-reference draws them with ``jax.random``, which torch cannot reproduce).
+The port has no learned weights; what comes across is the configuration
+(two-view ``VOConfig`` or windowed ``BAConfig``) and, for parity runs, the
+RANSAC minimal samples (the reference draws them with ``jax.random``,
+which torch cannot reproduce).
 """
 
 from __future__ import annotations
@@ -15,12 +16,16 @@ import torch
 
 from epivo_tpu_torch.geometry.camera import Pinhole
 from epivo_tpu_torch.pipeline.config import (
-    FrontendConfig, LMConfig, RansacConfig, VOConfig,
+    BAConfig, FrontendConfig, GlobalBAConfig, LMConfig, LoopConfig, RansacConfig,
+    ScaleConfig, VOConfig,
 )
 
+_VO_NESTED = {"camera": Pinhole, "frontend": FrontendConfig,
+              "ransac": RansacConfig, "lm": LMConfig}
 _NESTED = {
-    VOConfig: {"camera": Pinhole, "frontend": FrontendConfig,
-               "ransac": RansacConfig, "lm": LMConfig},
+    VOConfig: _VO_NESTED,
+    BAConfig: {**_VO_NESTED, "scale": ScaleConfig, "global_ba": GlobalBAConfig,
+               "loop": LoopConfig},
 }
 
 
@@ -44,23 +49,27 @@ def _convert(cls, obj):
                   for name, val in src.items()})
 
 
-def config_from_reference(obj) -> VOConfig:
-    """The port's :class:`VOConfig` from the reference's ``VOConfig``.
+def config_from_reference(obj) -> VOConfig | BAConfig:
+    """The port's :class:`VOConfig` or :class:`BAConfig` from the
+    reference's config of the same name.
 
     Takes the reference dataclass (read by attribute) or
-    ``dataclasses.asdict`` of it, copies ``Pinhole``, ``FrontendConfig``,
-    ``RansacConfig`` and ``LMConfig`` field by field, and raises on a field
-    the port does not know.
+    ``dataclasses.asdict`` of it, copies it and every config it nests field
+    by field, and raises on a field the port does not know. A config with
+    fields beyond ``VOConfig``'s is read as a ``BAConfig``.
     """
-    return _convert(VOConfig, obj)
+    vo_fields = {f.name for f in dataclasses.fields(VOConfig)}
+    cls = VOConfig if set(_fields_of(obj)) <= vo_fields else BAConfig
+    return _convert(cls, obj)
 
 
 def ransac_samples_from_reference(idx_np, device=None) -> torch.Tensor:
-    """The reference's sample indices [n_hyp, 8] (a numpy array, e.g. from
-    ``epivo_tpu.ransac._sample_indices``) as the LongTensor that
-    ``ransac_essential`` and ``vo_step`` accept."""
+    """The reference's sample indices [n_hyp, 8], or [B, n_hyp, 8] for B
+    pairs (a numpy array, e.g. from ``epivo_tpu.ransac._sample_indices``),
+    as the LongTensor that ``ransac_essential``, ``vo_step`` and
+    ``vo_step_batched`` accept."""
     idx = np.asarray(idx_np)
-    if idx.ndim != 2 or not np.issubdtype(idx.dtype, np.integer):
-        raise ValueError(f"expected an integer [n_hyp, 8] array, got "
-                         f"{idx.dtype} {idx.shape}")
+    if idx.ndim not in (2, 3) or not np.issubdtype(idx.dtype, np.integer):
+        raise ValueError(f"expected an integer [n_hyp, 8] or [B, n_hyp, 8] "
+                         f"array, got {idx.dtype} {idx.shape}")
     return torch.as_tensor(idx.astype(np.int64), device=device)

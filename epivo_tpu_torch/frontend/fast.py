@@ -47,9 +47,9 @@ CAND_LAUNCHES = 0
 class Keypoints(NamedTuple):
     """Fixed-budget keypoint set."""
 
-    xy: torch.Tensor  # [K, 2] float (x, y) pixel coordinates
-    score: torch.Tensor  # [K] detector response
-    valid: torch.Tensor  # [K] bool
+    xy: torch.Tensor  # [..., K, 2] float (x, y) pixel coordinates
+    score: torch.Tensor  # [..., K] detector response
+    valid: torch.Tensor  # [..., K] bool
 
 
 def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -208,19 +208,20 @@ def keypoints_from_candidates(val: torch.Tensor, idx: torch.Tensor, k: int,
 
 def top_k_keypoints(score: torch.Tensor, k: int,
                     two_stage: bool | None = None) -> Keypoints:
-    """Rank-select a fixed budget of keypoints from a dense [H, W] score map.
+    """Rank-select a fixed budget of keypoints from a dense [..., H, W]
+    score map (no leading axis, or one batch axis).
 
     The two-stage path (default for H*W >= ``TWO_STAGE_MIN_PIXELS``) first
     reduces each 16x16 block to its top-8 candidates, then takes the exact
     top-k over the candidates; the single-stage path takes the top-k of the
     whole map. Ties go to the lower index in both, as in the reference.
     """
-    H, W = score.shape
+    H, W = score.shape[-2:]
     if two_stage is None:
         two_stage = H * W >= TWO_STAGE_MIN_PIXELS
     if two_stage:
         return keypoints_from_candidates(*block_candidates(score), k, W)
-    vals, idx = top_k_stable(score.reshape(-1), k)
+    vals, idx = top_k_stable(score.flatten(-2), k)
     ys = (idx // W).to(score.dtype)
     xs = (idx % W).to(score.dtype)
     return Keypoints(xy=torch.stack([xs, ys], dim=-1), score=vals,
@@ -229,15 +230,17 @@ def top_k_keypoints(score: torch.Tensor, k: int,
 
 def detect(img: torch.Tensor, threshold: float = 40.0, max_keypoints: int = 1024,
            nms: bool = True, use_kernel: bool | None = None) -> Keypoints:
-    """FAST detection with a fixed keypoint budget. img [H, W].
+    """FAST detection with a fixed keypoint budget. img [H, W], or [B, H, W]
+    for B frames at once (every field of the result then has a leading [B]).
 
     ``use_kernel=None`` runs the CUDA kernels for a CUDA tensor and the
     plain version for a CPU tensor; ``True`` on a CPU tensor raises. On the
-    kernel path a two-stage map goes through the fused candidate kernel and
-    the torch second stage, with no host sync.
+    kernel path a two-stage map goes through one launch of the fused
+    candidate kernel, whatever B is, and the torch second stage, with no
+    host sync.
     """
     if kernel_wanted(img, use_kernel):
-        H, W = img.shape
+        H, W = img.shape[-2:]
         if H * W >= TWO_STAGE_MIN_PIXELS:
             val, idx = fast_candidates_kernel(img.contiguous(), threshold, nms=nms)
             return keypoints_from_candidates(val, idx, max_keypoints, W)

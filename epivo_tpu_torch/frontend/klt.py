@@ -40,9 +40,9 @@ SMEM_PER_BLOCK = 232448
 
 
 class FlowResult(NamedTuple):
-    xy: torch.Tensor  # [K, 2] tracked positions in the target image
-    status: torch.Tensor  # [K] bool
-    err: torch.Tensor  # [K] mean absolute patch residual
+    xy: torch.Tensor  # [..., K, 2] tracked positions in the target image
+    status: torch.Tensor  # [..., K] bool
+    err: torch.Tensor  # [..., K] mean absolute patch residual
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +421,10 @@ def track(
     n_chunks: int = 1,
     use_kernel: bool | None = None,
 ) -> FlowResult:
-    """Track points from the src to the tgt image. pts [K, 2] (x, y) pixels.
+    """Track points from the src to the tgt image. src, tgt [H, W] with pts
+    [K, 2] (x, y) pixels and valid [K]; or src, tgt [B, H, W] with pts
+    [B, K, 2] and valid [B, K] for B pairs at once, one level kernel
+    launch per pyramid level whatever B is.
 
     OpenCV-default-equivalent configuration: winSize 21, 4 levels, eps
     0.01. ``margin`` bounds the per-chunk displacement per level: an int or
@@ -445,8 +448,8 @@ def track(
     S_max = win + 2 * max(margin) + 1
 
     def pad_to_window(im):
-        ph = max(0, S_max - im.shape[0])
-        pw = max(0, S_max - im.shape[1])
+        ph = max(0, S_max - im.shape[-2])
+        pw = max(0, S_max - im.shape[-1])
         if ph or pw:
             im = imops.edge_pad(im, 0, ph, 0, pw)
         return im
@@ -455,8 +458,8 @@ def track(
     pyr_t = [pad_to_window(im) for im in pyr_t]
 
     g = pts / 2.0 ** (levels - 1)
-    ok = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
-    err = torch.zeros(pts.shape[0], dtype=pts.dtype, device=pts.device)
+    ok = torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
+    err = torch.zeros(pts.shape[:-1], dtype=pts.dtype, device=pts.device)
     for lvl in range(levels - 1, -1, -1):
         p_lvl = pts / 2.0**lvl
         g, ok_lvl, err = _track_level(
@@ -467,8 +470,9 @@ def track(
         if lvl > 0:
             g = g * 2.0
 
-    H, W = tgt.shape
-    inb = (g[:, 0] >= 0) & (g[:, 0] <= W - 1) & (g[:, 1] >= 0) & (g[:, 1] <= H - 1)
+    H, W = tgt.shape[-2:]
+    gx, gy = g[..., 0], g[..., 1]
+    inb = (gx >= 0) & (gx <= W - 1) & (gy >= 0) & (gy <= H - 1)
     status = ok & inb & (err < max_err)
     if valid is not None:
         status = status & valid

@@ -8,6 +8,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from epivo_tpu_torch._device import constant
+
 
 @dataclasses.dataclass(frozen=True)
 class Pinhole:
@@ -21,19 +23,19 @@ class Pinhole:
     height: int = 0
 
     def K(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        return torch.tensor(
+        return constant(
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
-            dtype=dtype, device=device,
+            dtype, device,
         )
 
     def K_inv(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        return torch.tensor(
+        return constant(
             [
                 [1.0 / self.fx, 0.0, -self.cx / self.fx],
                 [0.0, 1.0 / self.fy, -self.cy / self.fy],
                 [0.0, 0.0, 1.0],
             ],
-            dtype=dtype, device=device,
+            dtype, device,
         )
 
     @staticmethod

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.geometry import linalg3, se3
 from epivo_tpu_torch.optim import smallchol
 
@@ -88,8 +89,8 @@ def decompose(E: torch.Tensor):
     E = U diag(1,1,0) V^T; R in {U W V^T, U W^T V^T}, t = +-u3 (unit norm).
     """
     U, _, Vt = linalg3.svd3(E)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = constant([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                 E.dtype, E.device)
     Ra = U @ W @ Vt
     Rb = U @ W.T @ Vt
     t = U[..., :, 2]
@@ -149,14 +150,41 @@ def recover_pose(E: torch.Tensor, p: torch.Tensor, p_t: torch.Tensor,
 
 
 def _tangent_basis(t: torch.Tensor):
-    """Two unit vectors spanning the tangent plane at t on S^2."""
-    a = torch.where(torch.abs(t[0]) < 0.9,
-                    torch.tensor([1.0, 0.0, 0.0], dtype=t.dtype, device=t.device),
-                    torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device))
+    """Two unit vectors spanning the tangent plane at t [..., 3] on S^2."""
+    e = torch.eye(3, dtype=t.dtype, device=t.device)
+    a = torch.where(torch.abs(t[..., :1]) < 0.9, e[0], e[1])
     b1 = torch.linalg.cross(t, a, dim=-1)
-    b1 = b1 / (torch.linalg.norm(b1) + _EPS)
+    b1 = b1 / (torch.linalg.norm(b1, dim=-1, keepdim=True) + _EPS)
     b2 = torch.linalg.cross(t, b1, dim=-1)
     return b1, b2
+
+
+def _increments(delta, b1, b2):
+    """Rotation and translation-direction increments of a 5-DoF step."""
+    dR = se3.so3_exp(delta[..., :3])
+    dt = se3.so3_exp(b1 * delta[..., 3:4] + b2 * delta[..., 4:5])
+    return dR, dt
+
+
+def _sampson_residual(delta, R, t, b1, b2, p, p_t, mf):
+    """Signed first-order (Sampson) residual [..., N] of E = [t']_x R' after
+    the step ``delta`` [..., 5] (not squared, for Gauss-Newton)."""
+    dR, dt = _increments(delta, b1, b2)
+    Ecur = se3.hat(torch.einsum("...ij,...j->...i", dt, t)) @ (R @ dR)
+    Ep = torch.einsum("...ij,...nj->...ni", Ecur, p)
+    Etp = torch.einsum("...ji,...nj->...ni", Ecur, p_t)
+    num = torch.einsum("...ni,...ni->...n", p_t, Ep)
+    den = torch.sqrt(
+        Ep[..., 0] ** 2 + Ep[..., 1] ** 2
+        + Etp[..., 0] ** 2 + Etp[..., 1] ** 2 + _EPS
+    )
+    return (num / den) * mf
+
+
+# d residual / d delta at delta = 0, per pair: forward-mode AD of one
+# pair's residual, mapped over the pair axis ([B, N, 5], never the
+# [B, N, B, 5] block that a jacfwd of the whole batch would build).
+_sampson_jacobian = torch.func.vmap(torch.func.jacfwd(_sampson_residual))
 
 
 def refine_essential(
@@ -172,51 +200,36 @@ def refine_essential(
     E = [t]_x R with a rotation increment (3 DoF) and a translation
     direction increment in the tangent plane of the unit sphere (2 DoF);
     a fixed number of damped GN steps, each accepted only if it lowers the
-    cost. The Jacobian comes from ``torch.func.jacfwd``, as the reference
-    takes it from ``jax.jacfwd``.
+    cost. E [3, 3] with p, p_t [N, 3], or one leading pair axis on all
+    (E [B, 3, 3], p [B, N, 3], mask [B, N]): every pair takes its own
+    steps. The Jacobian comes from ``torch.func.jacfwd`` per pair, as the
+    reference takes it from ``jax.jacfwd`` under ``jax.vmap``.
     """
+    if E.dim() == 2:
+        return refine_essential(E[None], p[None], p_t[None],
+                                None if mask is None else mask[None],
+                                iters, damping)[0]
     m = mask if mask is not None else torch.ones(p.shape[:-1], dtype=torch.bool,
                                                  device=p.device)
     mf = m.to(E.dtype)
     R, t, _ = recover_pose(E, p, p_t, mask=m)
-    zero5 = torch.zeros(5, dtype=E.dtype, device=E.device)
+    zero5 = torch.zeros(E.shape[:-2] + (5,), dtype=E.dtype, device=E.device)
     eye5 = torch.eye(5, dtype=E.dtype, device=E.device)
-
-    def sampson_vec(R_, t_):
-        Ecur = se3.hat(t_) @ R_
-        # Signed first-order residual (not squared) for GN.
-        Ep = torch.einsum("ij,nj->ni", Ecur, p)
-        Etp = torch.einsum("ji,nj->ni", Ecur, p_t)
-        num = torch.einsum("ni,ni->n", p_t, Ep)
-        den = torch.sqrt(
-            Ep[..., 0] ** 2 + Ep[..., 1] ** 2
-            + Etp[..., 0] ** 2 + Etp[..., 1] ** 2 + _EPS
-        )
-        return (num / den) * mf
-
-    def increments(delta, b1, b2):
-        dR = se3.so3_exp(delta[:3])
-        dt = se3.so3_exp(b1 * delta[3] + b2 * delta[4])
-        return dR, dt
 
     for _ in range(iters):
         b1, b2 = _tangent_basis(t)
-
-        def res_of(delta, R=R, t=t, b1=b1, b2=b2):
-            dR, dt = increments(delta, b1, b2)
-            return sampson_vec(R @ dR, dt @ t)
-
-        r0 = res_of(zero5)
-        J = torch.func.jacfwd(res_of)(zero5)  # [N, 5]
-        H = J.T @ J + damping * eye5
-        delta = -smallchol.solve_spd_small(H, J.T @ r0)
-        r1 = res_of(delta)
-        accept = torch.sum(r1 * r1) < torch.sum(r0 * r0)
-        delta = torch.where(accept, delta, torch.zeros_like(delta))
-        dR, dt = increments(delta, b1, b2)
-        R, t = R @ dR, dt @ t
+        frame = (R, t, b1, b2, p, p_t, mf)
+        r0 = _sampson_residual(zero5, *frame)  # [B, N]
+        J = _sampson_jacobian(zero5, *frame)  # [B, N, 5]
+        H = J.mT @ J + damping * eye5
+        delta = -smallchol.solve_spd_small(H, (J.mT @ r0[..., None])[..., 0])
+        r1 = _sampson_residual(delta, *frame)
+        accept = torch.sum(r1 * r1, dim=-1) < torch.sum(r0 * r0, dim=-1)
+        delta = torch.where(accept[..., None], delta, torch.zeros_like(delta))
+        dR, dt = _increments(delta, b1, b2)
+        R, t = R @ dR, torch.einsum("...ij,...j->...i", dt, t)
     E_new = se3.hat(t) @ R
-    return E_new / (torch.linalg.norm(E_new) + _EPS)
+    return E_new / (torch.linalg.norm(E_new.flatten(-2), dim=-1)[..., None, None] + _EPS)
 
 
 def pose_fallback(R: torch.Tensor, t: torch.Tensor,
@@ -227,7 +240,7 @@ def pose_fallback(R: torch.Tensor, t: torch.Tensor,
     translation; vanishing translation -> canned translation. Branch-free."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     bad_R = tr < trace_min
-    canned = torch.tensor(fallback_t, dtype=R.dtype, device=R.device).expand(t.shape)
+    canned = constant(fallback_t, R.dtype, R.device).expand(t.shape)
     eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
     R_out = torch.where(bad_R[..., None, None], eye, R)
     t_out = torch.where(bad_R[..., None], canned, t)

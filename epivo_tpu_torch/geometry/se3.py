@@ -118,8 +118,8 @@ def rt_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # Row 3 of the identity: no host-to-device copy, so no stream sync.
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -146,15 +146,17 @@ def mul44(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def generators(dtype=torch.float32, device=None) -> torch.Tensor:
-    """The 6 generators of se(3) as a [6, 4, 4] tensor, order (v, w)."""
-    G = torch.zeros((6, 4, 4), dtype=dtype, device=device)
+    """The 6 generators of se(3) as a [6, 4, 4] tensor, order (v, w).
+
+    Built from identity rows, not by item assignment: on a CUDA tensor,
+    assigning a Python number copies it from the host with a stream sync.
+    """
+    e = torch.eye(4, dtype=dtype, device=device)
     # Translation generators: e_k in the last column.
-    G[0, 0, 3] = 1.0
-    G[1, 1, 3] = 1.0
-    G[2, 2, 3] = 1.0
+    trans = e[:3, :, None] * e[3][None, None, :]
     # Rotation generators: hat(e_k) in the top-left 3x3 block.
-    G[3:, :3, :3] = hat(torch.eye(3, dtype=dtype, device=device))
-    return G
+    rot = torch.nn.functional.pad(hat(e[:3, :3]), (0, 1, 0, 1))
+    return torch.cat([trans, rot])
 
 
 def chain_compose(Ts: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -169,19 +171,21 @@ def chain_compose(Ts: torch.Tensor, reverse: bool = False) -> torch.Tensor:
 def prefix_products(Ts: torch.Tensor) -> torch.Tensor:
     """All contiguous sub-chain products of a pose chain.
 
-    ``out[j, k] = Ts[k] @ Ts[k-1] @ ... @ Ts[j]`` for ``j <= k``; entries
-    with ``j > k`` are identity. ``Ts`` is [Z, 4, 4]; output [Z, Z, 4, 4].
-    Z is a window size (a handful), so a plain double loop.
+    ``out[..., j, k] = Ts[k] @ Ts[k-1] @ ... @ Ts[j]`` for ``j <= k``;
+    entries with ``j > k`` are identity. ``Ts`` is [..., Z, 4, 4] (leading
+    axes are windows or pairs); output [..., Z, Z, 4, 4]. Z is a window
+    size (a handful), so a plain double loop over Z, never over the
+    leading axes.
     """
-    Z = Ts.shape[0]
-    eye = torch.eye(4, dtype=Ts.dtype, device=Ts.device)
+    Z = Ts.shape[-3]
+    eye = torch.eye(4, dtype=Ts.dtype, device=Ts.device).expand(Ts.shape[:-3] + (4, 4))
     rows = []
     for j in range(Z):
         row = [eye] * j
-        carry = Ts[j]
+        carry = Ts[..., j, :, :]
         row.append(carry)
         for k in range(j + 1, Z):
-            carry = Ts[k] @ carry
+            carry = Ts[..., k, :, :] @ carry
             row.append(carry)
-        rows.append(torch.stack(row))
-    return torch.stack(rows)
+        rows.append(torch.stack(row, dim=-3))
+    return torch.stack(rows, dim=-4)

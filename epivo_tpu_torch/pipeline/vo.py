@@ -5,8 +5,9 @@
            -> revert-on-high-uncertainty -> relative pose + triangulated cloud
 
 Every step after image upload runs on the images' device with static
-shapes. ``klt.track`` makes no host sync (``chip_smoke.py`` runs it
-under ``torch.cuda.set_sync_debug_mode("error")``).
+shapes and no host sync (``chip_smoke.py`` runs the batched step under
+``torch.cuda.set_sync_debug_mode("error")``). The single step is the
+batched step of one pair, so there is one code path.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from epivo_tpu_torch.pipeline.config import VOConfig
 
 
 class VOStepResult(NamedTuple):
+    """One pair's result; :func:`vo_step_batched` gives every field a
+    leading [B]."""
+
     T: torch.Tensor  # [4, 4] refined relative pose (source -> target)
     n_tracked: torch.Tensor  # [] int32
     n_inliers: torch.Tensor  # [] int32
@@ -37,7 +41,7 @@ class VOStepResult(NamedTuple):
 
 def _unit_translation(T: torch.Tensor) -> torch.Tensor:
     """Normalize the pose's translation to unit norm (a zero translation is
-    left untouched)."""
+    left untouched). T [..., 4, 4]."""
     t = T[..., :3, 3]
     n = torch.linalg.norm(t, dim=-1, keepdim=True)
     safe = torch.where(n > 1e-12, n, 1.0)
@@ -47,22 +51,27 @@ def _unit_translation(T: torch.Tensor) -> torch.Tensor:
 
 
 def _select_top(mask: torch.Tensor, k: int):
-    """Indices of the first k True lanes (score-ordered input assumed);
-    returns (idx [k], valid [k])."""
-    order = torch.argsort((~mask).to(torch.uint8), stable=True)  # True first
-    idx = order[:k]
-    return idx, mask[idx]
+    """Indices of the first k True lanes of the last axis (score-ordered
+    input assumed); returns (idx [..., k], valid [..., k])."""
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)  # True first
+    idx = order[..., :k]
+    return idx, torch.gather(mask, -1, idx)
 
 
-def vo_step(img0: torch.Tensor, img1: torch.Tensor,
-            generator: torch.Generator | None, config: VOConfig,
-            ransac_samples: torch.Tensor | None = None,
-            use_kernel: bool | None = None) -> VOStepResult:
-    """One two-view VO step. img0/img1: [H, W] float32 grayscale.
+def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
+                    generator: torch.Generator | None, config: VOConfig,
+                    ransac_samples: torch.Tensor | None = None,
+                    use_kernel: bool | None = None) -> VOStepResult:
+    """B two-view VO steps at once. img0/img1: [B, H, W] float32 grayscale.
 
-    ``generator`` draws the RANSAC samples; ``ransac_samples`` (a LongTensor
-    [n_hyp, 8]) replaces that draw. ``use_kernel=None`` runs the CUDA
-    kernels for CUDA images and the plain versions for CPU images.
+    The reference's ``jax.vmap(vo_step)`` with the pair axis written out:
+    one FAST candidate launch and one KLT level launch per pyramid level
+    for all B pairs, per-pair RANSAC winners, refine-E and one batched LM
+    (W = B windows of one pose and one constraint), with no host sync.
+    ``generator`` draws every pair's RANSAC samples in one draw;
+    ``ransac_samples`` (a LongTensor [B, n_hyp, 8]) replaces that draw.
+    ``use_kernel=None`` runs the CUDA kernels for CUDA images and the plain
+    versions for CPU images. Every field of the result has a leading [B].
     """
     fc, rc, lc = config.frontend, config.ransac, config.lm
     K_inv = config.camera.K_inv(img0.dtype, img0.device)
@@ -74,9 +83,9 @@ def vo_step(img0: torch.Tensor, img1: torch.Tensor,
         levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig,
         use_kernel=use_kernel,
     )
-    n_tracked = torch.sum(flow.status).to(torch.int32)
+    n_tracked = torch.sum(flow.status, dim=-1).to(torch.int32)
 
-    p0 = cam.normalize(kp.xy, K_inv)
+    p0 = cam.normalize(kp.xy, K_inv)  # [B, K, 3]
     p1 = cam.normalize(flow.xy, K_inv)
 
     thr = (rc.threshold_px / config.camera.fx) ** 2
@@ -91,22 +100,24 @@ def vo_step(img0: torch.Tensor, img1: torch.Tensor,
                                        iters=rc.refine_iters)
     R_e, t_e, front = essential.recover_pose(E, p0, p1, mask=rres.inliers)
     R_e, t_e = essential.pose_fallback(R_e, t_e)
-    T_e = se3.rt_to_matrix(R_e, t_e)
+    T_e = se3.rt_to_matrix(R_e, t_e)  # [B, 4, 4]
 
-    # Top-N cheirality-passing inliers for LM refinement.
+    # Top-N cheirality-passing inliers of each pair for LM refinement: one
+    # window per pair, one pose, one constraint.
     sel = rres.inliers & front & flow.status
-    idx, sel_valid = _select_top(sel, lc.n_points)
-    out = lm.solve(
-        T_e[None], torch.zeros((1, 2), dtype=torch.int64, device=img0.device),
-        p0[idx][None], p1[idx][None], pmask=sel_valid[None],
+    idx, sel_valid = _select_top(sel, lc.n_points)  # [B, n]
+    pick = lambda q: torch.gather(q, 1, idx[..., None].expand(-1, -1, 3))[:, None]
+    out = lm.solve_batched(
+        T_e[:, None], torch.zeros((1, 2), dtype=torch.int64, device=img0.device),
+        pick(p0), pick(p1), pmask=sel_valid[:, None],
         lambda0=lc.lambda0, epsilon=lc.epsilon, max_iters=lc.max_iters,
         huber_delta=lc.huber_delta,
     )
     # Revert to the E-pose when LM uncertainty is high or too few points
     # were available to refine.
-    enough = torch.sum(sel_valid) >= lc.min_points
-    revert = (out.r_norm > lc.revert_r_norm) | ~enough
-    T = torch.where(revert, T_e, out.T0s[0])
+    enough = torch.sum(sel_valid, dim=-1) >= lc.min_points
+    revert = (out.r_norm > lc.revert_r_norm) | ~enough  # [B]
+    T = torch.where(revert[:, None, None], T_e, out.T0s[:, 0])
     # Two-view geometry is gauge-free in |t|: pin the unit norm.
     T = _unit_translation(T)
 
@@ -126,6 +137,23 @@ def vo_step(img0: torch.Tensor, img1: torch.Tensor,
         matches_tgt=flow.xy,
         inlier_mask=track_inl,
     )
+
+
+def vo_step(img0: torch.Tensor, img1: torch.Tensor,
+            generator: torch.Generator | None, config: VOConfig,
+            ransac_samples: torch.Tensor | None = None,
+            use_kernel: bool | None = None) -> VOStepResult:
+    """One two-view VO step: :func:`vo_step_batched` with B = 1.
+    img0/img1: [H, W] float32 grayscale.
+
+    ``generator`` draws the RANSAC samples; ``ransac_samples`` (a LongTensor
+    [n_hyp, 8]) replaces that draw. ``use_kernel=None`` runs the CUDA
+    kernels for CUDA images and the plain versions for CPU images.
+    """
+    out = vo_step_batched(img0[None], img1[None], generator, config,
+                          None if ransac_samples is None else ransac_samples[None],
+                          use_kernel)
+    return VOStepResult(*(f[0] for f in out))
 
 
 def apply_scale(T: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,15 @@ patch bit for bit like the plain version, but sums it in another order.
 The level kernel (B2 + B3 fused) is held to the same tolerances on the new
 guess and the residual, and to equal ``ok`` except where min_ev / win^2
 lies within 1e-4 relative of min_eig (its G sums run in another order).
+Both fused kernels also run at B = 8, the batched step's batch.
+
+The batched LM (``lm.solve_batched``, W = 64 windows) on the card against
+the same solve on the CPU: rotations within 1e-3, translation directions
+within 3e-3, r_norm rtol 0.2 and atol 1e-5, accepted steps within 8 (the
+pose and count bounds of the reference's twin test ``test_lm_lanes.py``;
+f32 accept/reject decisions part on rounding near the minimum, and the
+epipolar energy does not see the translations' scale, so it is not
+compared).
 """
 
 import numpy as np
@@ -23,7 +32,9 @@ import torch
 
 from epivo_tpu_torch.datasets import photoreal
 from epivo_tpu_torch.frontend import fast, image, klt
+from epivo_tpu_torch.geometry import se3
 from epivo_tpu_torch.geometry.camera import Pinhole
+from epivo_tpu_torch.optim import lm
 from epivo_tpu_torch.pipeline import config, vo
 
 pytestmark = pytest.mark.cuda
@@ -72,6 +83,26 @@ def test_fast_candidates_kernel_bit_exact(dev, shape, threshold):
         val, idx = fast.fast_candidates_kernel(img, threshold, nms=nms)
         torch.cuda.synchronize()
         assert torch.equal(val, ref_v) and torch.equal(idx, ref_i)
+
+
+def _corridor_batch(dev, B=8):
+    """B copies of corridor frame 0 at 376x1241, lane b brightened by
+    b * 1e-5 (the batched step's input), and frame 1 for each lane."""
+    frames, _, _ = photoreal.corridor_sequence(2, H=376, W=1241, seed=0)
+    f0, f1 = (torch.from_numpy(np.asarray(f, np.float32)).to(dev) for f in frames)
+    eps = torch.arange(B, device=dev, dtype=torch.float32)[:, None, None] * 1e-5
+    return (f0 + eps).contiguous(), f1.expand(B, -1, -1).contiguous()
+
+
+def test_fast_candidates_kernel_at_batch_eight(dev):
+    img0, _ = _corridor_batch(dev)
+    val, idx = fast.fast_candidates_kernel(img0, 40.0)
+    ref_v, ref_i = fast.block_candidates(fast.nms3(fast.fast_score_map(img0, 40.0)))
+    torch.cuda.synchronize()
+    assert torch.equal(val, ref_v) and torch.equal(idx, ref_i)
+    before = fast.CAND_LAUNCHES
+    kp = fast.detect(img0, 40.0, 512)
+    assert fast.CAND_LAUNCHES == before + 1 and kp.xy.shape == (8, 512, 2)
 
 
 def test_detect_kernel_matches_plain(dev):
@@ -145,7 +176,7 @@ def _level_case(dev, S, B, seed):
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2])
-@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("B", [1, 2, 8])
 @pytest.mark.parametrize("S", [34, 46])
 def test_level_kernel_matches_plain(dev, S, B, n_chunks):
     src, tgt, pts, guess, margin = _level_case(dev, S, B, seed=S + 10 * B + n_chunks)
@@ -191,3 +222,47 @@ def test_vo_step_launches_each_kernel(dev):
 def test_vo_step_two_stage_launches_fused_fast(dev):
     # Above it: the fused candidate kernel, and no dense map.
     assert _vo_step_launches(dev, 256, 320) == (0, 1, 0, 0, 3)
+
+
+def _lm_windows(W, seed=0, N=32, noise=1e-4):
+    """W two-pose windows of the mono BA spec (spans (0,0), (1,1), (0,1)):
+    forward-moving poses, landmarks 12-40 deep, matches with pixel-like
+    noise, and perturbed initial poses; all made with numpy."""
+    rng = np.random.default_rng(seed)
+    xi = np.concatenate([rng.normal(0, 0.3, (W, 2, 3)) + [0, 0, 1.0],
+                         rng.normal(0, 0.05, (W, 2, 3))], -1)
+    Ts = se3.se3_exp(torch.from_numpy(xi.astype(np.float32))).double().numpy()
+    reps = np.array([(0, 0), (1, 1), (0, 1)])
+    p, p_t = np.empty((W, 3, N, 3)), np.empty((W, 3, N, 3))
+    for r, (z0, z1) in enumerate(reps):
+        T = Ts[:, z0] if z0 == z1 else Ts[:, z1] @ Ts[:, z0]
+        X = np.stack([rng.uniform(-8, 8, (W, N)), rng.uniform(-4, 4, (W, N)),
+                      rng.uniform(12, 40, (W, N))], -1)
+        Xt = np.einsum("wij,wnj->wni", T[:, :3, :3], X) + T[:, None, :3, 3]
+        p[:, r], p_t[:, r] = X / X[..., 2:3], Xt / Xt[..., 2:3]
+        p_t[:, r, :, :2] += rng.normal(0, noise, (W, N, 2))
+    dxi = np.concatenate([rng.normal(0, 0.08, (W, 2, 3)), rng.normal(0, 0.04, (W, 2, 3))], -1)
+    T0s = (torch.from_numpy(Ts.astype(np.float32))
+           @ se3.se3_exp(torch.from_numpy(dxi.astype(np.float32))))
+    return (T0s, torch.from_numpy(reps), torch.from_numpy(p.astype(np.float32)),
+            torch.from_numpy(p_t.astype(np.float32)))
+
+
+def _rot_dir(T):
+    T = T.double()
+    t = T[..., :3, 3]
+    return T[..., :3, :3], t / torch.linalg.norm(t, dim=-1, keepdim=True)
+
+
+def test_lm_solve_batched_card_matches_cpu(dev):
+    args = _lm_windows(64)
+    out_c = lm.solve_batched(*args, huber_delta=1e-5)
+    out_g = lm.solve_batched(*(a.to(dev) for a in args), huber_delta=1e-5)
+    torch.cuda.synchronize()
+    (R_g, d_g), (R_c, d_c) = _rot_dir(out_g.T0s.cpu()), _rot_dir(out_c.T0s)
+    assert float((R_g - R_c).abs().max()) <= 1e-3
+    assert float((d_g - d_c).abs().max()) <= 3e-3
+    r_g, r_c = out_g.r_norm.cpu(), out_c.r_norm
+    assert bool(((r_g - r_c).abs() <= 1e-5 + 0.2 * r_c.abs()).all())
+    assert int((out_g.n_accepted.cpu() - out_c.n_accepted).abs().max()) <= 8
+    assert int(out_c.n_accepted.min()) > 0
