@@ -42,3 +42,14 @@ def kernel_wanted(x: torch.Tensor, use_kernel: bool | None) -> bool:
             f"use_kernel=True needs a CUDA tensor, got one on {x.device}"
         )
     return bool(use_kernel)
+
+
+def runner_device(device=None) -> torch.device:
+    """The device a sequence runner works on: ``device`` when given, else
+    the CUDA card. Raises when CUDA is asked for and there is none:
+    nothing continues on the CPU unless the CPU is asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device; pass device='cpu' to run on the CPU")
+    return dev

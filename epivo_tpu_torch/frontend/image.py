@@ -9,7 +9,12 @@ reference bit for bit. Images are [..., H, W].
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+
+from epivo_tpu_torch._device import constant
 
 # 5-tap binomial and Scharr taps; every value is exact in float32.
 _BINOMIAL = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
@@ -76,3 +81,56 @@ def build_pyramid(img: torch.Tensor, levels: int):
     for _ in range(levels - 1):
         pyr.append(downsample2(pyr[-1]))
     return pyr
+
+
+@functools.lru_cache(maxsize=64)
+def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] float32 weights of ``jax.image.resize(...,
+    method="linear")`` along one axis: the triangle kernel of its
+    scale-and-translate, widened by the shrink factor (antialiasing),
+    normalised per output sample, computed in float32 in the reference's
+    order of operations."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = f32(max(inv_scale, 1.0))
+    sample_f = ((np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv_scale)
+                - f32(0.0) - f32(0.5))
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(n_in: int, n_out: int):
+    """The nonzero part of :func:`_triangle_weights` as taps: input indices
+    and weights [T, n_out], T the widest support (zero-weight padding)."""
+    w = _triangle_weights(n_in, n_out)
+    nz = w != 0
+    first = np.argmax(nz, axis=0)
+    T = max(int(nz.sum(0).max()), 1)
+    idx = first[None, :] + np.arange(T)[:, None]
+    inside = idx < n_in
+    idx = np.minimum(idx, n_in - 1)
+    wt = np.where(inside, w[idx, np.arange(n_out)[None, :]], np.float32(0.0))
+    return idx.astype(np.int64), wt.astype(np.float32)
+
+
+def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``jax.image.resize(img, (out_h, out_w), method="linear")`` for
+    [..., H, W] images: the reference's per-axis triangle weights, applied
+    as explicit tap sums (rows, then columns; each sum in ascending input
+    order). Elementwise, so a frame's result does not depend on the batch
+    it sits in or on the device; only the order of each sum's few nonzero
+    terms can differ from the reference's contraction."""
+    H, W = img.shape[-2:]
+    iy, wy = _resize_taps(H, out_h)
+    ix, wx = _resize_taps(W, out_w)
+    dev = img.device
+    iy_t, ix_t = constant(iy, torch.int64, dev), constant(ix, torch.int64, dev)
+    wy_t, wx_t = constant(wy, img.dtype, dev), constant(wx, img.dtype, dev)
+    rows = sum(img.index_select(-2, iy_t[k]) * wy_t[k][:, None] for k in range(len(iy)))
+    return sum(rows.index_select(-1, ix_t[k]) * wx_t[k] for k in range(len(ix)))

@@ -3,10 +3,10 @@
 
 Field names and defaults match the reference, so
 :func:`epivo_tpu_torch.convert.config_from_reference` can copy them one by
-one. The windowed-BA configs come with the BA port: ``BAConfig`` and the
-stages it nests (``ScaleConfig``, ``GlobalBAConfig``, ``LoopConfig``),
-whose fields the ported modules do not read yet (the scale graph, global
-BA and loop closure) are carried so that configs convert field for field.
+one. ``BAConfig`` nests ``ScaleConfig`` (read by the scale graph and the
+mono chain), ``GlobalBAConfig`` and ``LoopConfig``; the last two stages
+are not ported yet (the runners refuse them when enabled), and their
+fields are carried so that configs convert field for field.
 """
 
 from __future__ import annotations
@@ -24,11 +24,13 @@ class FrontendConfig:
     klt_levels: int = 4
     klt_iters: int = 12  # fixed count (accuracy is flat beyond ~10)
     klt_min_eig: float = 1e-4
-    # ORB path fields (vo_step_orb, not ported yet); kept so configs
-    # convert field for field.
+    # ORB path (vo_step_orb): multi-scale detection when orb_pyramid.
     orb_pyramid: bool = False
     orb_levels: int = 8
     orb_scale_factor: float = 1.2
+    # ORB retry of pairs whose KLT association collapses (the runners'
+    # _extract_pairs): RANSAC inliers below this fraction of the budget,
+    # or a reverted step; 0 disables. At most orb_fallback_max pairs.
     orb_fallback_frac: float = 0.25
     orb_fallback_max: int = 128
 
@@ -60,6 +62,14 @@ class RansacConfig:
         return int(min(max(128, -(-n // 128) * 128), 4096))
 
 
+def underfill_floor(n_points: int) -> int:
+    """Minimum valid matches for a window constraint to keep its weight
+    (below it the constraint is zero-weighted, the reference's
+    underfilled-constraint handling, `kitti_ba.cpp:821-826`): a quarter of
+    the point budget, and at least the 8 an essential matrix needs."""
+    return max(8, n_points // 4)
+
+
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     lambda0: float = 1e-2
@@ -76,8 +86,9 @@ class LMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScaleConfig:
-    """Scale recovery: the no-GT mono chain and the stereo metric scale
-    (``pipeline/scale.py`` in the reference; not ported yet)."""
+    """Scale recovery: the no-GT mono scale graph and chain
+    (``pipeline/scale.py``) and the stereo metric scale (its runner is not
+    ported yet)."""
 
     # Depth sanity gates for ratio medians (mono chain + stereo init).
     depth_min: float = 1e-3

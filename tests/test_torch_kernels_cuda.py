@@ -15,7 +15,15 @@ patch bit for bit like the plain version, but sums it in another order.
 The level kernel (B2 + B3 fused) is held to the same tolerances on the new
 guess and the residual, and to equal ``ok`` except where min_ev / win^2
 lies within 1e-4 relative of min_eig (its G sums run in another order).
-Both fused kernels also run at B = 8, the batched step's batch.
+Both fused kernels also run at B = 8, the batched step's batch. Window
+extraction also runs at S = 37, the ORB descriptor's window, for the two
+frames of one ORB step and the 16 of a batch of 8 pairs.
+
+The ORB step launches the candidate kernel once and the extraction kernel
+once (single scale), and 6 / 2 / 8 times candidate / dense / extraction
+on the 8-level pyramid of a 376x1241 frame; ``vo_step_orb_batched`` at
+B = 2 on the kernels against the plain path with the same samples: equal
+matches, rotation and translation direction within 2e-3.
 
 The batched LM (``lm.solve_batched``, W = 64 windows) on the card against
 the same solve on the CPU: rotations within 1e-3, translation directions
@@ -114,7 +122,7 @@ def test_detect_kernel_matches_plain(dev):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("B,S", [(1, 34), (8, 46), (2, 21)])
+@pytest.mark.parametrize("B,S", [(1, 34), (8, 46), (2, 21), (2, 37), (16, 37)])
 def test_extract_kernel_exact(dev, B, S):
     g = torch.Generator().manual_seed(1)
     H, W, K = 188, 621, 512
@@ -266,3 +274,47 @@ def test_lm_solve_batched_card_matches_cpu(dev):
     assert bool(((r_g - r_c).abs() <= 1e-5 + 0.2 * r_c.abs()).all())
     assert int((out_g.n_accepted.cpu() - out_c.n_accepted).abs().max()) <= 8
     assert int(out_c.n_accepted.min()) > 0
+
+
+def _orb_case(dev, pyramid=False):
+    frames, _, _ = photoreal.corridor_sequence(2, H=376, W=1241, seed=0)
+    f0, f1 = (torch.from_numpy(np.asarray(f, np.float32)).to(dev) for f in frames)
+    cfg = config.VOConfig(
+        camera=Pinhole(718.856, 718.856, 620.5, 188.0, 1241, 376),
+        frontend=config.FrontendConfig(fast_threshold=40.0, max_keypoints=512,
+                                       orb_pyramid=pyramid),
+        ransac=config.RansacConfig(n_hyp=512), lm=config.LMConfig(n_points=48))
+    return f0, f1, cfg
+
+
+@pytest.mark.parametrize("pyramid,expect", [(False, (0, 1, 1, 0, 0)), (True, (2, 6, 8, 0, 0))])
+def test_vo_step_orb_launches(dev, pyramid, expect):
+    f0, f1, cfg = _orb_case(dev, pyramid)
+    counts = lambda: (fast.KERNEL_LAUNCHES, fast.CAND_LAUNCHES, klt.EXTRACT_LAUNCHES,
+                      klt.LK_LAUNCHES, klt.LEVEL_LAUNCHES)
+    before = counts()
+    res = vo.vo_step_orb(f0, f1, torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == expect
+    assert bool(torch.isfinite(res.T).all()) and int(res.n_tracked) >= 8
+
+
+def test_vo_step_orb_batched_kernel_matches_plain(dev):
+    from epivo_tpu_torch import ransac
+
+    f0, f1, cfg = _orb_case(dev)
+    img0 = torch.stack([f0, f1 + 0.5])
+    img1 = torch.stack([f1, f0 + 0.5])
+    _, _, status = vo.orb_associate(img0, img1, cfg)
+    samples = ransac._sample_indices(torch.Generator(device=dev).manual_seed(1),
+                                     cfg.ransac.hypotheses(), 512, status, device=dev,
+                                     lead=(2,))
+    r_k = vo.vo_step_orb_batched(img0, img1, None, cfg, ransac_samples=samples)
+    r_p = vo.vo_step_orb_batched(img0, img1, None, cfg, ransac_samples=samples,
+                                 use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(r_k.matches_tgt, r_p.matches_tgt)
+    assert torch.equal(r_k.n_tracked, r_p.n_tracked) and int(r_k.n_tracked.min()) >= 8
+    (R_k, d_k), (R_p, d_p) = _rot_dir(r_k.T.cpu()), _rot_dir(r_p.T.cpu())
+    assert float(torch.linalg.norm(R_k - R_p, dim=(-2, -1)).max()) < 2e-3
+    assert float(torch.linalg.norm(d_k - d_p, dim=-1).max()) < 2e-3
