@@ -37,20 +37,31 @@ Phases, each reported on its own line:
    on repeat, every lane against the ground truth, kernel path against
    plain path), the extraction kernel at the ORB window (S = 37) for the
    2 and 16 frames of a single and a batched step, one step on the 8-level
-   pyramid (fast_cand 6, fast 2, extract 8), and the ORB retry of
-   _extract_pairs on a turn pair where KLT alone under-rotates;
+   pyramid (fast_cand 6, fast 2, extract 8; the dense FAST kernel against
+   its plain version at that step's 127x415 and 106x346 levels), and the
+   ORB retry of _extract_pairs on a turn pair where KLT alone
+   under-rotates;
 9. sequence: the 300-frame KITTI-sized corridor through run_vo_sequence
    (ground-truth scale) and run_ba_sequence (no ground truth): ATE, length
    ratio, the pairs' accuracy, the pairs retried and replaced by ORB, the
    wall time of each stage, and fast_cand, klt_level and the extraction
    kernel against their plain versions on the inputs of one 32-pair
    extraction batch and one ORB retry batch of that run, with device time
-   and bound.
+   and bound;
+10. stereo: the 60-frame KITTI-sized stereo corridor through
+   run_stereo_ba_sequence at three seeds: metric ATE, length ratio and
+   step-length error against the JAX package's own CPU spread, the metric
+   scale on the card against the CPU (its depth step free of host syncs),
+   pairs, retries, wall time per stage, peak_buffered and device memory,
+   and fast_cand and klt_level against their plain versions on the first
+   extraction batch of that run, which holds rig pairs (and the ORB retry
+   batch's kernels, if the retry fired).
 
-Before the last two lines, one JSON object holds the batched, BA, ORB and
-sequence phases' numbers; the line before the last is a JSON object with
-one entry per kernel (launches per KLT step, per ORB step, per pyramid
-ORB step and in the sequence run); the last line is {"ok": true,
+Before the last two lines, one JSON object holds the batched, BA, ORB,
+sequence and stereo phases' numbers; the line before the last is a JSON
+object with one entry per kernel (launches per KLT step, per ORB step,
+per pyramid ORB step, in the sequence run and in the stereo run); the
+last line is {"ok": true,
 "device": {...}}. Any failed check raises and
 exits non-zero without that line. Imports nothing of JAX.
 """
@@ -146,6 +157,23 @@ SEQ_FRAMES, SEQ_BATCH, SEQ_SEEDS = 300, 32, (0, 1, 2)
 SEQ_VO_ATE_PCT, SEQ_BA_ATE_PCT, SEQ_RATIO = 2.5, 1.5 * 5.164, (1.031 / 1.5, 1.5 * 2.301)
 SEQ_PAIR_DIR, SEQ_PAIR_FLIPPED = 0.0625, 54
 SEQ_GRAPH_ATOL = 1e-3
+# The stereo corridor (ROADMAP A12): frames per camera, the seeds, pairs per
+# batched call (scripts/run_photoreal_stereo.py's configuration). The
+# limits come from the JAX package's own CPU runs on the same 60 frames,
+# seeds 0-3 (python -m tests.reference_accuracy stereo --frames 60 --seeds
+# 0-3): the median relative step-length error per seed within 1.5x its
+# worst seed's (0.0284 / 0.0305 / 0.0304 / 0.0305); over the seeds, the
+# median metric ATE (% of the length) within 1.5x its worst (0.283 / 0.574
+# / 0.352 / 0.304 %), and the median length ratio's distance from 1 within
+# 1.5x its largest (1.0062 / 1.0179 / 1.0089 / 1.0064). The card's scales
+# against the CPU's on the same pairs: STEREO_SCALE_RTOL relative, the
+# same Hampel replacements.
+STEREO_FRAMES, STEREO_SEEDS, STEREO_BATCH = 60, (0, 1, 2), 8
+STEREO_REF_STEP_ERR, STEREO_REF_ATE_PCT, STEREO_REF_RATIO_DEV = 0.030527, 0.5745, 0.017930
+STEREO_STEP_ERR = 1.5 * STEREO_REF_STEP_ERR
+STEREO_ATE_PCT = 1.5 * STEREO_REF_ATE_PCT
+STEREO_RATIO_DEV = 1.5 * STEREO_REF_RATIO_DEV
+STEREO_SCALE_RTOL = 1e-4
 
 
 def _check(cond: bool, what: str) -> None:
@@ -967,6 +995,34 @@ def cand_report(imgs, thr: float, what: str) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def dense_report(imgs, thr: float, what: str) -> dict:
+    """The dense FAST kernel (score and 3x3 NMS) on frames [B, H, W]
+    against its plain version (bit-equal), with the wrapper's time, the
+    kernel's device time, the bound of this data's work and the plain
+    version's time."""
+    from epivo_tpu_torch import _kernels
+    from epivo_tpu_torch.frontend import fast
+
+    B, Hh, Ww = imgs.shape
+    plain = lambda: fast.nms3(fast.fast_score_map(imgs, thr))
+    k = fast.fast_score_map_kernel(imgs, thr, nms=True)
+    torch.cuda.synchronize()
+    _check(torch.equal(k, plain()), f"FAST kernel differs from plain ({what}, "
+           f"{tuple(imgs.shape)})")
+    lib, stream = _kernels.lib(), torch.cuda.current_stream().cuda_stream
+    dev_ms, how = device_ms(lambda: lib.epivo_fast_score(
+        imgs.data_ptr(), k.data_ptr(), B, Hh, Ww, thr, 1, stream), "fast_score_kernel")
+    b_ms, b_by = bound(2 * B * Hh * Ww * 4, cand_work(imgs, thr)["score_ops"]
+                       + B * Hh * Ww * NMS_OPS)
+    tt = timed_in_turns({"kernel": lambda: fast.fast_score_map_kernel(imgs, thr, nms=True),
+                         "plain": plain}, turns=1, reps=5, warmup=1)
+    print(f"{what}: kernel fast (dense) B={B} {Hh}x{Ww} threshold {thr:g} bit-equal, "
+          f"wrapper {tt['kernel']:.4f} ms, device {dev_ms:.4f} ms ({how}), bound "
+          f"{b_ms:.4f} ms ({b_by}), plain {tt['plain']:.4f} ms")
+    return dict(max_abs_err=0.0, ms=tt["kernel"], device_ms=dev_ms, plain_ms=tt["plain"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def level_report(args, what: str) -> dict:
     """The level kernel against the plain level on ``args`` (those of
     klt.track_level_kernel, one chunk), with the wrapper's time, the
@@ -1158,6 +1214,7 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     window, one step on the scale pyramid, and the ORB retry of pair
     extraction on a turn pair."""
     from epivo_tpu_torch import ransac
+    from epivo_tpu_torch.frontend import fast
     from epivo_tpu_torch.pipeline import vo
 
     dev = f0.device
@@ -1275,10 +1332,15 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
         rows[f"S37_{label}"] = extract_report(imgs, oy, ox, S, " (ORB describe)")
     out["extract"] = rows
 
-    # One step on the 8-level scale pyramid.
+    # One step on the 8-level scale pyramid; the warm-up step records the
+    # dense FAST kernel's inputs (levels 6-7, below 65,536 pixels).
     cfg_p = orb_config(cfg, pyramid=True)
-    step(cfg_p)
+    with recording(fast, "fast_score_map_kernel") as dense:
+        step(cfg_p)
     torch.cuda.synchronize()
+    stacks = [(img.reshape(-1, *img.shape[-2:]), thr) for img, thr, *_ in dense]
+    out["fast_dense"] = {f"{img.shape[1]}x{img.shape[2]}_B{img.shape[0]}": dense_report(
+        img, thr, "orb: pyramid step") for img, thr in stacks}
     reset_launches()
     t0 = time.perf_counter()
     r_pyr = step(cfg_p)
@@ -1483,12 +1545,13 @@ def phase_sequence(dev) -> dict:
 
 
 @contextlib.contextmanager
-def sequence_recording():
-    """Record, during one run_ba_sequence, the arguments of the launches
-    whose shapes phase 9 adds to the kernel checks: the first fast_cand
-    launch of a full extraction batch and that batch's klt_level launches
-    (one per level), and the first fast_cand and extraction launches of
-    the ORB retry pass. Yields {(pass, kernel[, level height]): args}."""
+def sequence_recording(batch: int = SEQ_BATCH):
+    """Record, during one sequence run, the arguments of the launches
+    whose shapes phases 9 and 10 add to the kernel checks: the first
+    fast_cand launch of a full extraction batch (``batch`` pairs) and that
+    batch's klt_level launches (one per level), and the first fast_cand
+    and extraction launches of the ORB retry pass. Yields
+    {(pass, kernel[, level height]): args}."""
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.pipeline import vo
 
@@ -1509,7 +1572,7 @@ def sequence_recording():
 
         return patched(module, name, record)
 
-    full = lambda x: not retry and x.shape[0] == SEQ_BATCH
+    full = lambda x: not retry and x.shape[0] == batch
     with contextlib.ExitStack() as stack:
         for cm in (patched(vo, "vo_step_orb_batched", in_retry),
                    first(fast, "fast_candidates_kernel",
@@ -1524,30 +1587,163 @@ def sequence_recording():
         yield rec
 
 
-def sequence_kernels(rec: dict) -> dict:
+def sequence_kernels(rec: dict, phase: str = "sequence", retry_required: bool = True) -> dict:
     """fast_cand, klt_level (top and finest level) and the extraction
-    kernel against their plain versions on the inputs the sequence gave
-    them (sequence_recording), with device time and bound."""
+    kernel against their plain versions on the inputs a sequence run gave
+    them (sequence_recording), with device time and bound. The ORB retry
+    batch's rows need a retry pass: required unless ``retry_required`` is
+    false, then checked where the run made one."""
     levels = sorted(((k[2], v) for k, v in rec.items() if k[1] == "klt_level"),
                     key=lambda kv: kv[0])
-    need = (("batch", "fast_cand"), ("retry", "fast_cand"), ("retry", "extract"))
+    retried = ("retry", "fast_cand") in rec
+    need = [("batch", "fast_cand")]
+    if retried or retry_required:
+        need += [("retry", "fast_cand"), ("retry", "extract")]
     _check(all(k in rec for k in need) and len(levels) >= 2,
-           f"phase 9 recorded launches {sorted(rec)}: a full extraction batch and an ORB "
-           f"retry batch expected")
+           f"{phase} recorded launches {sorted(rec)}: a full extraction batch"
+           f"{' and an ORB retry batch' if retry_required else ''} expected")
     out = {"fast_cand": {}, "klt_level": {}, "extract": {}}
     for k, what in ((("batch", "fast_cand"), "extraction batch"),
                     (("retry", "fast_cand"), "ORB retry batch")):
+        if k not in rec:
+            continue
         img, thr = rec[k][:2]
         out["fast_cand"][f"{k[0]}_B{img.shape[0]}"] = cand_report(
-            img, thr, f"sequence: {what}")
+            img, thr, f"{phase}: {what}")
     for _, args in (levels[0], levels[-1]):
         win, margin = args[4:6]
         out["klt_level"][f"S{win + 2 * margin + 1}_B{args[0].shape[0]}"] = level_report(
-            args, "sequence: extraction batch")
-    imgs, oy, ox, S = rec["retry", "extract"]
-    out["extract"][f"S{S}_B{imgs.shape[0]}"] = extract_report(
-        imgs, oy, ox, S, " (sequence: ORB retry batch)")
+            args, f"{phase}: extraction batch")
+    if ("retry", "extract") in rec:
+        imgs, oy, ox, S = rec["retry", "extract"]
+        out["extract"][f"S{S}_B{imgs.shape[0]}"] = extract_report(
+            imgs, oy, ox, S, f" ({phase}: ORB retry batch)")
     return out
+
+
+def stereo_frames(n_frames: int):
+    """Both cameras' frames of the stereo corridor, rendered in up to 8
+    worker processes; the first two of each camera checked bit-equal
+    against corridor_stereo_sequence's generators. Returns (left, right,
+    K, T_rig, trajectory length)."""
+    import multiprocessing
+
+    from epivo_tpu_torch.datasets import photoreal
+    from epivo_tpu_torch.tools import photoreal_stereo as ps
+
+    gt, K, T_rig, length = ps.stereo_fixture(n_frames)
+    with multiprocessing.get_context("spawn").Pool(max(1, min(8, os.cpu_count() or 1))) as pool:
+        L, R = (list(ps.camera_frames(gt, K, H, W, right, pool)) for right in (False, True))
+    gen_l, gen_r, *_ = photoreal.corridor_stereo_sequence(2, H=H, W=W, seed=ps.FIXTURE_SEED)
+    for k, (a, b) in enumerate(zip(gen_l, gen_r)):
+        _check(np.array_equal(L[k], a) and np.array_equal(R[k], b),
+               f"stereo frame {k} differs from the generator's")
+    return L, R, K, T_rig, length
+
+
+def phase_stereo(dev) -> tuple[dict, dict]:
+    """The stereo corridor (STEREO_FRAMES per camera) through
+    run_stereo_ba_sequence at STEREO_SEEDS, held to the JAX package's own
+    CPU runs (STEREO_* above); the metric scale on the card against the
+    CPU on seed 0's pairs, its depth step free of host syncs; and the
+    kernels against their plain versions on seed 0's first extraction
+    batch (which holds rig pairs) and, if one ran, its first ORB retry
+    batch. Returns (the phase's numbers, the kernel rows)."""
+    from epivo_tpu_torch.geometry.camera import Pinhole
+    from epivo_tpu_torch.pipeline import runners
+    from epivo_tpu_torch.tools import photoreal_stereo as ps
+
+    t0 = time.perf_counter()
+    L, R, K, T_rig, length = stereo_frames(STEREO_FRAMES)
+    render_s = time.perf_counter() - t0
+    print(f"stereo: rendered {len(L)} + {len(R)} frames {H}x{W} in {render_s:.1f} s "
+          f"(trajectory {length:.2f} m, baseline {ps.BASELINE} m), bit-equal on frames 0-1")
+    runs, launches, res0, recorded = [], [], None, None
+    for seed in STEREO_SEEDS:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with (sequence_recording(STEREO_BATCH) if res0 is None
+              else contextlib.nullcontext()) as rec:
+            run, res = ps.run_seed(STEREO_FRAMES, seed, batch=STEREO_BATCH, frames=(L, R),
+                                   device=dev)
+        launches.append(launches_now())
+        run["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if res0 is None:
+            res0, recorded = res, rec
+        st = run["stats"]
+        print(f"stereo: seed {seed}: metric ATE {run['ate_metric_rmse_m']:.4f} m = "
+              f"{run['ate_pct_of_length']:.3f} % of the length, length ratio "
+              f"{run['length_ratio']:.4f}, step-length error median "
+              f"{run['step_err_median']:.4f} (worst {run['step_err_max']:.4f}); "
+              f"{st['n_pairs']} pairs, {st['n_retried']} retried by ORB "
+              f"({run['n_retried_rig']} rig pairs), {st['n_replaced']} replaced; "
+              f"{st['n_refined']} of {st['n_scale_steps']} steps refined, "
+              f"{st['n_hampel']} Hampel replacements; {run['windows_total']} windows, "
+              f"{run['windows_reverted']} reverted; launches {launches[-1]}")
+        print(f"stereo: seed {seed} wall: extraction {st['extract_s']:.1f} s "
+              f"({st['n_pairs'] / st['extract_s']:.2f} pairs/s), ORB retry "
+              f"{st['orb_retry_s']:.1f} s, metric scale {st['scale_s']:.2f} s, window solve "
+              f"{st['solve_s']:.2f} s, post-LM rescale {st['rescale_s']:.2f} s, "
+              f"run_stereo_ba_sequence total {st['total_s']:.1f} s; peak_buffered "
+              f"{st['peak_buffered']} frames, max_memory_allocated "
+              f"{run['max_memory_allocated_gb']:.3f} GB")
+        _check(run["windows_reverted"] == 0, f"stereo seed {seed}: "
+               f"{run['windows_reverted']} windows reverted")
+        _check(run["step_err_median"] <= STEREO_STEP_ERR,
+               f"stereo seed {seed}: median step-length error {run['step_err_median']:.4f} "
+               f"> {STEREO_STEP_ERR:.4f}")
+        runs.append(run)
+    l0 = launches[0]
+    _check(l0["fast_cand"] > 0 and l0["klt_level"] > 0
+           and (runs[0]["stats"]["n_retried"] == 0 or l0["extract"] > 0),
+           f"the stereo run did not go through the kernels: {l0}")
+    first = sorted(res0.pair_data)[:STEREO_BATCH]
+    n_rig = sum(1 for i, j in first if i % 2 == 0 and j == i + 1)
+    _check(n_rig > 0, f"the first extraction batch {first} holds no rig pair")
+    print(f"stereo: seed-{STEREO_SEEDS[0]} kernels on its first extraction batch {first} "
+          f"({n_rig} rig pairs)" + (" and its first ORB retry batch"
+                                   if ("retry", "fast_cand") in recorded else ""))
+    kernels = sequence_kernels(recorded, "stereo", retry_required=False)
+    del recorded
+
+    # The metric scale on the card against the CPU, on seed 0's pairs.
+    cfg = ps.configs(Pinhole.from_K(K, W, H))
+    s_dev = runners.stereo_step_scales(res0.pair_data, STEREO_FRAMES, T_rig, cfg, device=dev)
+    s_cpu = runners.stereo_step_scales(res0.pair_data, STEREO_FRAMES, T_rig, cfg, device="cpu")
+    dmax = 0.0
+    for name in ("s0", "s0_clean", "s_refined", "scale"):
+        a, b = getattr(s_dev, name), getattr(s_cpu, name)
+        _check(np.array_equal(np.isnan(a), np.isnan(b)),
+               f"stereo scales card vs CPU: {name} missing on other steps")
+        fin = ~np.isnan(a)
+        dmax = max(dmax, float(np.max(np.abs(a[fin] / b[fin] - 1.0), initial=0.0)))
+    reps = [tuple(int(getattr(s, r).sum()) for s in (s_dev, s_cpu))
+            for r in ("replaced0", "replaced1")]
+    d = no_sync(lambda: runners._stereo_depths(s_dev.rows, T_rig, dev))
+    _check(bool(torch.isfinite(d).all()), "stereo depths not finite")
+    print(f"stereo: metric scale on the card vs the CPU, seed-{STEREO_SEEDS[0]} pairs: "
+          f"{len(s_dev.ks)} steps, both passes max relative difference {dmax:.3g} (limit "
+          f"{STEREO_SCALE_RTOL}), Hampel replacements {reps[0]} / {reps[1]} (pass 1 / 2, "
+          f"card, CPU); the depth step ({d.shape[1]} steps x {d.shape[2]} points, one "
+          f"call) makes no host sync")
+    _check(dmax <= STEREO_SCALE_RTOL, f"stereo scales card vs CPU differ by {dmax:.3g}")
+    _check(all(a == b for a, b in reps), f"stereo Hampel replacements differ: {reps}")
+
+    ates = [r["ate_pct_of_length"] for r in runs]
+    ratios = [r["length_ratio"] for r in runs]
+    med_ate, med_ratio = float(np.median(ates)), float(np.median(ratios))
+    print(f"stereo: over seeds {list(STEREO_SEEDS)}: metric ATE "
+          f"{', '.join(f'{a:.3f}' for a in ates)} % (median {med_ate:.3f}), length ratio "
+          f"{', '.join(f'{r:.4f}' for r in ratios)} (median {med_ratio:.4f}); limits: median "
+          f"ATE <= {STEREO_ATE_PCT:.3f} %, |median ratio - 1| <= {STEREO_RATIO_DEV:.4f}, "
+          f"median step error per seed <= {STEREO_STEP_ERR:.4f}")
+    _check(med_ate <= STEREO_ATE_PCT, f"stereo median metric ATE {med_ate:.3f} % > "
+           f"{STEREO_ATE_PCT:.3f} %")
+    _check(abs(med_ratio - 1.0) <= STEREO_RATIO_DEV,
+           f"stereo median length ratio {med_ratio:.4f}: |ratio - 1| > {STEREO_RATIO_DEV:.4f}")
+    return dict(render_s=render_s, length_m=length, runs=runs, launches=launches,
+                median_ate_pct=med_ate, median_ratio=med_ratio,
+                scale_card_vs_cpu=dmax, hampel=reps), kernels
 
 
 KERNELS = {
@@ -1580,17 +1776,22 @@ def main() -> int:
     ba_report = phase_ba(dev)
     orb = phase_orb(f0, f1, gt, cfg)
     report["extract"]["orb"] = orb["extract"]
+    report["fast"]["orb_pyramid"] = orb.pop("fast_dense")
     sequence, seq_kernels = phase_sequence(dev)
     for k, rows in seq_kernels.items():
         report[k]["sequence"] = rows
+    stereo, stereo_kernels = phase_stereo(dev)
+    for k, rows in stereo_kernels.items():
+        report[k]["stereo"] = rows
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"batched": batched, "ba": ba_report, "orb": orb,
-                      "sequence": sequence}))
+                      "sequence": sequence, "stereo": stereo}))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "launches_per_orb_step": orb["launches_per_step"][k],
          "launches_per_pyramid_orb_step": orb["pyramid"]["launches_per_step"][k],
-         "launches_sequence": sequence["launches"][k], **report[k]}
+         "launches_sequence": sequence["launches"][k],
+         "launches_stereo": stereo["launches"][0][k], **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` (no PyTorch headers: such a build
-takes seconds, where one through ``torch.utils.cpp_extension.load`` takes
-minutes). Each C entry point launches on the stream it is given and
+The sources are compiled by ``nvcc``, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers: such a build takes seconds,
+where one through ``torch.utils.cpp_extension.load`` takes minutes). Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero status.
 
 The library goes into ``build/epivo_tpu_torch/`` at the root of the
@@ -25,8 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "epivo_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,7 +65,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -78,21 +79,37 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    sources = sorted(CSRC.glob("*.cu"))
     # Build under a temporary name, then rename: concurrent builders never
     # load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                           capture_output=True, text=True)
-        build_log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objs:
+        try:
+            procs = [(src, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", os.path.join(objs, src.stem + ".o"),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                for src in sources]
+            logs, failed = [], []
+            for src, proc in procs:
+                logs.append(proc.communicate()[0])
+                if proc.returncode != 0:
+                    failed.append(f"{src.name} ({proc.returncode})")
+            if not failed:
+                r = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", tmp,
+                                    *(os.path.join(objs, s.stem + ".o") for s in sources)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True)
+                logs.append(r.stdout)
+                if r.returncode != 0:
+                    failed.append(f"link ({r.returncode})")
+            build_log = "".join(logs)
+            if failed:
+                raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{build_log}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return out
 
 

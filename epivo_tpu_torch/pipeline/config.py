@@ -87,8 +87,9 @@ class LMConfig:
 @dataclasses.dataclass(frozen=True)
 class ScaleConfig:
     """Scale recovery: the no-GT mono scale graph and chain
-    (``pipeline/scale.py``) and the stereo metric scale (its runner is not
-    ported yet)."""
+    (``pipeline/scale.py``) and the stereo metric scale of
+    ``runners.run_stereo_ba_sequence`` (depth-ratio init, f64 refinement,
+    post-LM rescale)."""
 
     # Depth sanity gates for ratio medians (mono chain + stereo init).
     depth_min: float = 1e-3

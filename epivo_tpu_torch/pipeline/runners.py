@@ -1,17 +1,22 @@
-"""Monocular sequence runners (port of the monocular part of
-``epivo_tpu/pipeline/runners.py``).
+"""Sequence runners (port of ``epivo_tpu/pipeline/runners.py``).
 
 ``run_vo_sequence`` chains two-view VO over consecutive pairs (GT scale
 injection, trajectory accumulation, cloud); ``run_ba_sequence`` extracts
 the pairs every window needs, recovers the no-GT relative scales through
 the scale graph, solves all windows in one batched LM call and stitches
-the trajectory.
+the trajectory; ``run_stereo_ba_sequence`` does the same on a stereo rig
+in a doubled frame index, with the metric scale of every step taken from
+the calibrated baseline (no ground truth needed);
+``run_gt_triangulation_sequence`` triangulates the extracted matches
+against the ground-truth motion.
 
 Host/device split: frame decode and GT stay on the host; frames go to the
 device in batches, and each batch of pairs is one batched step
 (``vo.vo_step_batched`` or ``vo.vo_step_orb_batched``), whose results come
 back as one packed device-to-host copy. Dispatch runs ``pipeline_depth``
-batches ahead of the fetch (:class:`stream.PipelinedDispatch`).
+batches ahead of the fetch (:class:`stream.PipelinedDispatch`). The
+stereo scale estimator's depths are one batched call and one copy; its
+estimators, and the post-LM rescale, run in float64 on the host.
 
 Each runner works on ``device`` (default: the CUDA card; it raises when
 there is none, see :func:`_device.runner_device`) and draws its RANSAC
@@ -52,12 +57,13 @@ class SequenceResult(NamedTuple):
     pair_data: dict | None = None  # run_ba_sequence: the extracted pairs
 
 
-def _refuse(mesh, config: BAConfig | None = None) -> None:
-    """Raise on the options whose stages are not ported yet."""
+def _refuse(mesh, config: BAConfig | None = None, global_ba: bool = True) -> None:
+    """Raise on the options whose stages are not ported yet (``global_ba``:
+    whether the runner has a global-BA stage to refuse)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the multi-device layer is not ported yet (ROADMAP A14)")
-    if config is not None and config.global_ba.enabled:
+    if global_ba and config is not None and config.global_ba.enabled:
         raise NotImplementedError(
             "config.global_ba.enabled: the global-BA polish is not ported "
             "yet (ROADMAP A14)")
@@ -360,8 +366,8 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
 
     ``ransac_samples`` / ``orb_samples`` ({(i, j): LongTensor [n_hyp, 8]})
     replace the generator's draws of the KLT and the ORB pass, for parity
-    runs. ``stats`` (a dict) receives the pair, retry and replace counts
-    and the passes' host wall seconds.
+    runs. ``stats`` (a dict) receives the pair, retry and replace counts,
+    the retried pairs and the passes' host wall seconds.
 
     Returns {(i, j): {p, p_t, mask (top-n_points score-ranked), T,
     p_full, p_t_full, mask_full, n_inl, rev}} with points in normalized
@@ -484,6 +490,7 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
             ckpt.maybe_save(len(out), _pack_pairs(out))
     if stats is not None:
         stats.update(n_retried=len(retry_frames), n_replaced=n_swap,
+                     retried=sorted(retry_frames),
                      extract_s=t1 - t0, orb_retry_s=time.perf_counter() - t1)
     return out
 
@@ -830,4 +837,409 @@ def run_ba_sequence(
         },
         stats=stats,
         pair_data=win.pair_data,
+    )
+
+
+class StereoScales(NamedTuple):
+    """The stereo runner's metric scale per temporal step k (frames
+    L_k -> L_{k+1}), before LM: see :func:`stereo_step_scales`."""
+
+    ks: list  # steps with both a rig and a temporal pair (rows below)
+    rows: list  # per row: (rig p_full, rig p_t_full, temporal T, p_full, p_t_full)
+    both: np.ndarray  # [rows, K] the depth-gated points of each row
+    s0: np.ndarray  # [F-1] pass 1: ratio-median init (NaN when underfilled)
+    n_used: np.ndarray  # [F-1] points the init used
+    gated_frac: np.ndarray  # [F-1]
+    s0_clean: np.ndarray  # [F-1] s0 after the Hampel pass
+    refined: np.ndarray  # [F-1] bool: pass 2 converged
+    rel_err: np.ndarray  # [F-1] pass 2's relative error (NaN when not run)
+    inlier_frac: np.ndarray  # [F-1] (NaN when not converged)
+    s_refined: np.ndarray  # [F-1] pass 2 before its Hampel pass
+    replaced0: np.ndarray  # [F-1] bool: replaced by the first Hampel pass
+    replaced1: np.ndarray  # [F-1] bool: replaced by the second
+    scale: np.ndarray  # [F-1] float32: the scale used (NaNs carried forward)
+
+
+def _stereo_depths(rows: list, T_rig: np.ndarray, dev) -> torch.Tensor:
+    """Rig (metric) and temporal (mono) epipolar depths of every step in
+    one batched call on ``dev``: [4, rows, K] = (d_met, v_met, d_mono,
+    v_mono), validity as 0 / 1. The rig is taken in float32, as the JAX
+    package's device depths take it. Makes no host sync."""
+    st = lambda q: _upload(np.stack([np.asarray(r[q], np.float32) for r in rows]), dev)
+    M = len(rows)
+    rig = _upload(np.asarray(T_rig, np.float32), dev)
+    T_ll = st(2)
+    d_met, v_met = epipolar.epipolar_depth(rig[:3, :3].expand(M, 3, 3),
+                                           rig[:3, 3].expand(M, 3), st(0), st(1))
+    d_mono, v_mono = epipolar.epipolar_depth(T_ll[:, :3, :3], T_ll[:, :3, 3], st(3), st(4))
+    return torch.stack([d_met, v_met.to(d_met.dtype), d_mono, v_mono.to(d_mono.dtype)])
+
+
+def stereo_step_scales(pair_data: dict, F: int, T_rig: np.ndarray, config: BAConfig,
+                       device=None) -> StereoScales:
+    """Metric scale of every temporal step from the calibrated baseline
+    (the JAX package's stereo runner, two passes).
+
+    Mono two-view poses are unit-norm; the rig provides absolute scale.
+    Pass 1: the rig pair (2k, 2k+1) and the temporal pair (2k, 2k+2) share
+    the keypoints of L_k (FAST is deterministic), so their epipolar depths
+    give a depth ratio per point; after depth-sanity gates,
+    :func:`scale.ratio_median_scale` takes the init, and
+    :func:`scale.hampel_log` replaces the catastrophic ones (a tracking
+    collapse makes s0 wrong by 8x). All steps' depths are one batched call
+    on ``device`` and one device-to-host copy. Pass 2 (``config.scale.refine``):
+    :func:`scale.estimate_step_scale`, the f64 joint ML refinement over raw
+    reprojections (it removes the 1/disparity bias of the triangulated
+    init), from the cleaned inits, then a second Hampel pass. Steps left
+    without a scale carry the previous one forward (1.0 at the start).
+    """
+    sc = config.scale
+    T_rig64 = np.asarray(T_rig, np.float64)
+    rows, ks = [], []
+    for k in range(F - 1):
+        rig = pair_data.get((2 * k, 2 * k + 1))
+        tem = pair_data.get((2 * k, 2 * k + 2))
+        if rig is not None and tem is not None:
+            rows.append((rig["p_full"], rig["p_t_full"], tem["T"],
+                         tem["p_full"], tem["p_t_full"]))
+            ks.append(k)
+    n = max(F - 1, 0)
+    s0_of, n_of, gf_of = np.full(n, np.nan), np.zeros(n, np.int32), np.zeros(n)
+    ref_of, rel_of, inl_of = np.zeros(n, bool), np.full(n, np.nan), np.full(n, np.nan)
+    repl0 = repl1 = np.zeros(n, bool)
+    s0_clean = s_ref = s_of = np.full(n, np.nan)
+    both = np.zeros((0, 0), bool)
+    if rows:
+        got = _stereo_depths(rows, T_rig64, runner_device(device)).cpu().numpy()
+        d_met, v_met, d_mono, v_mono = got[0], got[1] > 0.5, got[2], got[3] > 0.5
+        # Depth-sanity gating only: the strict per-pair inlier masks leave
+        # too few common points under forward motion, and the estimators
+        # are robust to the outliers this lets through.
+        both = (v_met & v_mono
+                & (d_met > sc.rig_depth_min) & (d_met < sc.depth_max)
+                & (d_mono > sc.depth_min) & (d_mono < sc.depth_max))
+        for row, k in enumerate(ks):
+            s0_of[k], n_of[k], gf_of[k] = scale_mod.ratio_median_scale(
+                d_met[row], d_mono[row], both[row],
+                rig_depth_quantile=sc.rig_depth_quantile, min_common=sc.min_common)
+        s0_clean, repl0 = scale_mod.hampel_log(
+            s0_of, window=sc.hampel_window, max_ratio=sc.hampel_ratio)
+        s_ref = s0_clean.copy()
+        if sc.refine:
+            huber_norm = sc.huber_px / float(config.camera.fx)
+            for row, k in enumerate(ks):
+                if not np.isfinite(s0_clean[k]) or s0_clean[k] <= 0:
+                    continue
+                T_ll = rows[row][2]
+                u = T_ll[:3, 3] / max(np.linalg.norm(T_ll[:3, 3]), 1e-12)
+                est = scale_mod.estimate_step_scale(
+                    p=rows[row][0], q=rows[row][1], p2=rows[row][4],
+                    R_rig=T_rig64[:3, :3], t_rig=T_rig64[:3, 3],
+                    R=T_ll[:3, :3], u=u, mask=both[row], s0=float(s0_clean[k]),
+                    huber=huber_norm, iters=sc.refine_iters,
+                    rel_err_max=sc.rel_err_max, trust_region=sc.trust_region)
+                rel_of[k] = est.rel_err
+                if est.converged:
+                    s_ref[k], ref_of[k] = est.s, True
+                    inl_of[k] = est.inlier_frac
+            # Safety net: the refinement can latch onto a wrong shallow
+            # minimum on a degraded step.
+            s_of, repl1 = scale_mod.hampel_log(
+                s_ref, window=sc.hampel_window, max_ratio=sc.hampel_ratio)
+        else:
+            s_of = s_ref
+    scale = np.ones(n, np.float32)
+    prev = 1.0
+    for k in range(n):
+        if np.isfinite(s_of[k]) and s_of[k] > 0:
+            prev = float(s_of[k])
+        scale[k] = prev
+    return StereoScales(ks=ks, rows=rows, both=both, s0=s0_of, n_used=n_of,
+                        gated_frac=gf_of, s0_clean=s0_clean, refined=ref_of,
+                        rel_err=rel_of, inlier_frac=inl_of, s_refined=s_ref,
+                        replaced0=repl0, replaced1=repl1, scale=scale)
+
+
+def _stereo_windows(pair_data: dict, anchors: list, spec, w_pattern: np.ndarray,
+                    T_rig: np.ndarray, scale: np.ndarray, N: int):
+    """Window tensors of the stereo runner: (T0s [W, Z, 4, 4], p, p_t
+    [W, R, N, 3], wreps [W, R], pmask [W, R, N]). Even zetas start at the
+    rig's calibration; odd zetas (R_k -> L_{k+1}) at the temporal pair's
+    motion scaled to the metric step, composed with the inverse rig. A
+    constraint whose pair is missing or underfilled gets weight 0."""
+    W, R_ = len(anchors), spec.reps.shape[0]
+    p = np.zeros((W, R_, N, 3), np.float32)
+    p_t = np.zeros((W, R_, N, 3), np.float32)
+    pmask = np.zeros((W, R_, N), bool)
+    wreps = np.tile(w_pattern, (W, 1)).astype(np.float32)
+    T0s = np.tile(np.eye(4, dtype=np.float32), (W, spec.n_zeta, 1, 1))
+    T_rig = np.asarray(T_rig, np.float32)
+    for w, a in enumerate(anchors):
+        base = 2 * a
+        for r, (f0, f1) in enumerate(spec.frame_pairs):
+            if wreps[w, r] == 0.0:
+                continue
+            gi, gj = base + int(f0), base + int(f1)
+            if (gi, gj) not in pair_data:
+                wreps[w, r] = 0.0
+                continue
+            d = pair_data[(gi, gj)]
+            p[w, r], p_t[w, r], pmask[w, r] = d["p"], d["p_t"], d["mask"]
+            if d["mask"].sum() < underfill_floor(N):
+                wreps[w, r] = 0.0
+        for z in range(spec.n_zeta):
+            if z % 2 == 0:
+                T0s[w, z] = T_rig
+                continue
+            k_step = a + z // 2
+            tem = pair_data.get((2 * k_step, 2 * k_step + 2))
+            if tem is not None:
+                T_ll = tem["T"].copy()
+                tn = np.linalg.norm(T_ll[:3, 3]) + 1e-12
+                T_ll[:3, 3] *= float(scale[k_step]) / tn
+                T0s[w, z] = (T_ll @ np.linalg.inv(T_rig)).astype(np.float32)
+            elif (base + z, base + z + 1) in pair_data:
+                T0s[w, z] = pair_data[(base + z, base + z + 1)]["T"]
+    return T0s, p, p_t, wreps, pmask
+
+
+def _post_lm_rescale(zetas: np.ndarray, n_steps: int, ss: StereoScales,
+                     T_rig: np.ndarray, config: BAConfig, mlog) -> None:
+    """Re-impose the metric scale on the LM-refined chain, in place, in
+    float64: the f64 joint estimator runs again against the refined step
+    motion (rotation and direction) of L_k -> L_{k+1} = cross @ rig, and
+    EVERY step gets a norm (the init scale where the estimator's gates
+    reject; the LM's own |t| is never trusted: its heavy tail alone
+    inflates the trajectory's length). A Hampel pass guards the result."""
+    sc = config.scale
+    T_rig64 = np.asarray(T_rig, np.float64)
+    huber_norm = sc.huber_px / float(config.camera.fx)
+    row_of = {k: i for i, k in enumerate(ss.ks)}
+    s_post = np.full(n_steps, np.nan)
+    ref_post = np.zeros(n_steps, bool)
+    for k in range(n_steps):
+        LtoL = zetas[2 * k + 1] @ zetas[2 * k]
+        tn = float(np.linalg.norm(LtoL[:3, 3]))
+        if tn < 1e-9:
+            continue
+        s_post[k] = float(ss.scale[k])
+        row = row_of.get(k)
+        if row is not None:
+            r = ss.rows[row]
+            est = scale_mod.estimate_step_scale(
+                p=r[0], q=r[1], p2=r[4], R_rig=T_rig64[:3, :3], t_rig=T_rig64[:3, 3],
+                R=LtoL[:3, :3], u=LtoL[:3, 3] / tn, mask=ss.both[row],
+                s0=float(ss.scale[k]), huber=huber_norm, iters=sc.refine_iters,
+                rel_err_max=sc.rel_err_max, trust_region=sc.trust_region)
+            if est.converged:
+                s_post[k], ref_post[k] = est.s, True
+    s_post, repl_post = scale_mod.hampel_log(
+        s_post, window=sc.hampel_window, max_ratio=sc.hampel_ratio)
+    for k in range(n_steps):
+        if not (np.isfinite(s_post[k]) and s_post[k] > 0):
+            continue
+        rig_T = zetas[2 * k]
+        LtoL = zetas[2 * k + 1] @ rig_T
+        tn = float(np.linalg.norm(LtoL[:3, 3]))
+        if tn < 1e-9:
+            continue
+        LtoL[:3, 3] = LtoL[:3, 3] / tn * float(s_post[k])
+        zetas[2 * k + 1] = LtoL @ np.linalg.inv(rig_T)
+        mlog.log({"stage": "stereo_scale_post", "step": k, "s": float(s_post[k]),
+                  "refined": bool(ref_post[k]), "hampel_replaced": bool(repl_post[k])})
+
+
+def run_stereo_ba_sequence(
+    frames_left: Iterable[np.ndarray],
+    frames_right: Iterable[np.ndarray],
+    config: BAConfig,
+    T_rig: np.ndarray,
+    gt_poses: np.ndarray | None = None,
+    seed: int = 0,
+    freeze_rig: bool = True,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 64,
+    n_frames: int | None = None,
+    metrics_path: str | None = None,
+    batch: int = 8,
+    pipeline_depth: int = 2,
+    mesh=None,
+    device=None,
+) -> SequenceResult:
+    """Windowed stereo BA (ref `kitti_ba` stereo path, `kitti_ba.cpp:908-1068`).
+
+    Doubled index space (2i = L_i, 2i+1 = R_i); per temporal step the
+    constraints are L->L' (span rig+cross), R->L' (cross only), and the rig
+    itself. ``T_rig`` is the calibrated L->R transform (from
+    ``KittiSequence.stereo_baseline_T``); with ``freeze_rig`` the rig zetas
+    are held exactly at calibration, so the metric scale comes from the
+    baseline and no GT scale is needed.
+
+    Left and right frames stream through one bounded interleaved buffer:
+    pass generators plus ``n_frames`` (or sized sequences) and only the
+    frames the pending pairs need stay resident. The rig pairs (2k, 2k+1)
+    are extracted with the temporal (2k, 2k+2) and cross (2k+1, 2k+2)
+    pairs, in sorted order (the ORB retry's cap takes the first pairs that
+    qualify): they never enter LM but give the metric depths of
+    :func:`stereo_step_scales`. All windows solve in one batched LM call;
+    the stitched chain comes back once and the post-LM rescale composes
+    it in float64 on the host. The ATE is metric (no scale alignment).
+    The host waits on the card at three places only: one device-to-host
+    copy per extraction batch (the pipelined fetch), one for every step's
+    depths, one for the solved windows; the float64 scale stages between
+    them run on the host by design.
+
+    The result's ``stats`` holds the pair, retry and replace counts, the
+    frame stream's ``peak_buffered``, the Hampel replacements and window
+    counts, and the host wall seconds of each stage; its ``pair_data``
+    the extracted pairs. Refused: ``mesh`` (A14) and ``config.loop`` (A13);
+    the stereo runner has no global-BA stage.
+    """
+    _refuse(mesh, config, global_ba=False)
+    t_start = time.perf_counter()
+    mlog = profiling.MetricsLogger(metrics_path)
+    if n_frames is None:
+        try:
+            n_frames = min(len(frames_left), len(frames_right))
+        except TypeError:
+            frames_left = [np.asarray(f, np.float32) for f in frames_left]
+            frames_right = [np.asarray(f, np.float32) for f in frames_right]
+            n_frames = min(len(frames_left), len(frames_right))
+    F = n_frames
+
+    def doubled_stream():
+        for k, (l_img, r_img) in enumerate(zip(frames_left, frames_right)):
+            if k >= F:
+                break
+            yield np.asarray(l_img, np.float32)
+            yield np.asarray(r_img, np.float32)
+
+    fs = stream.FrameStream(doubled_stream(), n_frames=2 * F)
+    ws = config.window_size
+    spec, w_pattern = ba_mod.stereo_window_spec(ws, freeze_rig=freeze_rig)
+    anchors = list(range(0, F - ws + 1, config.stride))
+    if not anchors:
+        raise ValueError(f"need at least {ws} stereo frames, got {F}")
+    vo_cfg = VOConfig(camera=config.camera, frontend=config.frontend,
+                      ransac=config.ransac, lm=config.lm)
+    N = config.lm.n_points
+    need = {(2 * a + int(f0), 2 * a + int(f1)) for a in anchors
+            for f0, f1 in spec.frame_pairs if 2 * a + int(f1) < 2 * F}
+    ckpt = (ckpt_mod.SequenceCheckpointer(checkpoint_dir, every=checkpoint_every)
+            if checkpoint_dir else None)
+    stats: dict = {}
+    pair_data = _extract_pairs(fs, sorted(need), vo_cfg, seed, n_points=N, ckpt=ckpt,
+                               mlog=mlog, batch=batch, pipeline_depth=pipeline_depth,
+                               device=device, stats=stats)
+    stats["peak_buffered"] = fs.peak_buffered
+
+    t0 = time.perf_counter()
+    ss = stereo_step_scales(pair_data, F, T_rig, config, device=device)
+    opt = lambda v, nd: None if not np.isfinite(v) else round(float(v), nd)
+    for k in range(F - 1 if ss.rows else 0):
+        mlog.log({"stage": "stereo_scale", "step": k, "s0": opt(ss.s0[k], 5),
+                  "s": float(ss.scale[k]), "n_used": int(ss.n_used[k]),
+                  "gated_frac": round(float(ss.gated_frac[k]), 3),
+                  "refined": bool(ss.refined[k]),
+                  "hampel_replaced": bool(ss.replaced0[k] or ss.replaced1[k]),
+                  "inlier_frac": opt(ss.inlier_frac[k], 3),
+                  "rel_err": opt(ss.rel_err[k], 4)})
+    T0s, p, p_t, wreps, pmask = _stereo_windows(pair_data, anchors, spec, w_pattern,
+                                                T_rig, ss.scale, N)
+    t1 = time.perf_counter()
+    out = _solve_windows(T0s, spec, p, p_t, wreps, pmask, config, device=device)
+    t2 = time.perf_counter()
+    _log_windows(mlog, anchors, out)
+    zetas = ba_mod.stitch_windows(torch.from_numpy(out.T_opt)).numpy().astype(np.float64)
+    n_steps = min(F - 1, zetas.shape[0] // 2)
+    sc = config.scale
+    if sc.post_lm_rescale and sc.refine and ss.rows:
+        _post_lm_rescale(zetas, n_steps, ss, T_rig, config, mlog)
+    traj = ba_mod.stereo_left_trajectory(torch.from_numpy(
+        np.ascontiguousarray(zetas[: 2 * n_steps], np.float32))).numpy()
+    mlog.close()
+
+    ate = rpe_t = None
+    gt_traj = None
+    if gt_poses is not None:
+        gt_traj = gt_poses[: traj.shape[0]]
+        gt_traj = np.linalg.inv(gt_traj[0])[None] @ gt_traj
+        ate = metrics.ate_rmse(traj, gt_traj, align=True, with_scale=False)
+        rpe_t, _ = metrics.rpe(traj, gt_traj)
+
+    stats.update(n_scale_steps=len(ss.ks), n_refined=int(ss.refined.sum()),
+                 n_hampel=int((ss.replaced0 | ss.replaced1).sum()),
+                 n_windows=len(anchors), n_reverted=int(out.reverted.sum()),
+                 scale_s=t1 - t0, solve_s=t2 - t1,
+                 rescale_s=time.perf_counter() - t2,
+                 total_s=time.perf_counter() - t_start)
+    return SequenceResult(
+        trajectory=traj,
+        gt_trajectory=gt_traj,
+        ate=ate,
+        rpe_t=rpe_t,
+        cloud=np.zeros((0, 3)),
+        cloud_limits=np.zeros(0, np.int64),
+        per_frame={
+            "window_r_norm": np.asarray(out.r_norm),
+            "window_reverted": np.asarray(out.reverted),
+        },
+        stats=stats,
+        pair_data=pair_data,
+    )
+
+
+def run_gt_triangulation_sequence(
+    frames: Iterable[np.ndarray],
+    config: VOConfig,
+    gt_poses: np.ndarray,
+    seed: int = 0,
+    device=None,
+) -> SequenceResult:
+    """GT-motion triangulation sanity runner (ref `kitti.cpp:39-188`, C25).
+
+    No pose estimation is trusted: the frontend supplies matches, but the
+    relative motion comes from GT, and the cloud is triangulated against
+    it (the 'validate triangulation before trusting estimated motion'
+    tool). All pairs triangulate in one batched call on ``device``, with
+    one device-to-host copy. The trajectory returned IS the GT trajectory.
+    """
+    fs = stream.FrameStream(frames)
+    if not fs.sized:
+        fs.materialize()
+    F = min(len(fs), len(gt_poses))
+    pairs = [(i, i + 1) for i in range(F - 1)]
+    pair_data = _extract_pairs(fs, pairs, config, seed, n_points=config.lm.n_points,
+                               device=device)
+
+    gt = np.asarray(gt_poses[:F])
+    gt = np.linalg.inv(gt[0])[None] @ gt  # start at identity
+    clouds, limits = [], []
+    if pairs:
+        dev = runner_device(device)
+        # Source camera i -> camera j, for every pair.
+        T_zeta = (np.linalg.inv(gt[1:]) @ gt[:-1]).astype(np.float32)
+        up = lambda a: _upload(np.asarray(a, np.float32), dev)
+        X, ok = epipolar.triangulate(
+            up(T_zeta[:, :3, :3]), up(T_zeta[:, :3, 3]),
+            up(np.stack([pair_data[pr]["p_full"] for pr in pairs])),
+            up(np.stack([pair_data[pr]["p_t_full"] for pr in pairs])))
+        h = torch.cat([X, ok[..., None].to(X.dtype)], dim=-1).cpu().numpy()
+        total = 0
+        for b, (i, j) in enumerate(pairs):
+            keep = (h[b, :, 3] > 0.5) & pair_data[(i, j)]["mask_full"]
+            clouds.append(h[b, keep, :3] @ gt[i][:3, :3].T + gt[i][:3, 3])
+            limits.append(total)
+            total += int(keep.sum())
+
+    cloud = np.concatenate(clouds) if clouds else np.zeros((0, 3))
+    return SequenceResult(
+        trajectory=gt,
+        gt_trajectory=gt,
+        ate=0.0,
+        rpe_t=0.0,
+        cloud=cloud,
+        cloud_limits=np.asarray(limits, np.int64),
+        per_frame={"n_points": np.asarray([len(c) for c in clouds])},
+        pair_data=pair_data,
     )

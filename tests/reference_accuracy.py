@@ -25,12 +25,23 @@ nothing:
   ``python -m epivo_tpu_torch.tools.photoreal_ate --save-pairs``), with no
   extraction: Sim(3) ATE and length ratio per file and package, so a
   trajectory gap between the packages can be put on the pairs or on what
-  follows them. Seconds per file.
+  follows them. Seconds per file;
+- ``stereo``: ``run_stereo_ba_sequence`` on the photoreal stereo corridor
+  (``corridor_stereo_sequence(--frames, seed=3)``) at the configuration
+  of ``scripts/run_photoreal_stereo.py`` and a batch of 8 pairs, in the
+  form of the port's ``tools/photoreal_stereo.py``: the same frames
+  (rendered once by the port's renderer, bit-equal to the JAX package's
+  generators), metric ATE, length ratio, step-length errors, windows
+  reverted, pairs retried and replaced by ORB, Hampel replacements, the
+  stages' wall seconds, the frame stream's ``peak_buffered`` and the
+  process's peak RSS. ``--save-pairs DIR`` writes each seed's extracted
+  pairs to ``DIR/stereo_pairs_seed<s>.npz``.
 
     python -m tests.reference_accuracy orb-pose --seeds 0-43
     python -m tests.reference_accuracy turn --seeds 0-9
     python -m tests.reference_accuracy sequence --seeds 0,1,2 [--save-pairs DIR]
     python -m tests.reference_accuracy back-half --pairs DIR/pairs_seed0.npz ...
+    python -m tests.reference_accuracy stereo --frames 60 --seeds 0-3
 """
 
 from __future__ import annotations
@@ -197,15 +208,98 @@ def sequence(seeds, n_frames: int, batch: int, workers: int, save_pairs=None) ->
                      **trunners._pack_pairs(seen["pair_data"]))
 
 
+def stereo(seeds, n_frames: int, batch: int, workers: int, save_pairs=None) -> None:
+    import multiprocessing
+    import tempfile
+
+    import jax
+
+    from epivo_tpu.geometry.camera import Pinhole
+    from epivo_tpu.pipeline import runners, stream
+    from epivo_tpu.pipeline.config import BAConfig, FrontendConfig, LMConfig, RansacConfig
+    from epivo_tpu_torch.pipeline import runners as trunners
+    from epivo_tpu_torch.tools import photoreal_stereo as ps
+
+    gt, K, T_rig, length = ps.stereo_fixture(n_frames)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        frames = tuple(list(ps.camera_frames(gt, K, ps.H, ps.W, right, pool))
+                       for right in (False, True))
+    render_s = time.perf_counter() - t0
+    cfg = BAConfig(camera=Pinhole(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                                  cy=float(K[1, 2]), width=ps.W, height=ps.H),
+                   frontend=FrontendConfig(fast_threshold=30.0, max_keypoints=512,
+                                           klt_levels=4),
+                   ransac=RansacConfig(n_hyp=512),
+                   lm=LMConfig(n_points=32, revert_r_norm=1e-2))
+    seen = {}
+    extract, solve, frame_stream = (runners._extract_pairs, runners._solve_windows,
+                                    stream.FrameStream)
+
+    class Recorded(frame_stream):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["stream"] = self
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            seen[name + "_s"] = time.perf_counter() - t
+            seen[name] = out
+            return out
+        return run
+
+    runners._extract_pairs, runners._solve_windows = (timed("extract", extract),
+                                                      timed("solve", solve))
+    runners.stream.FrameStream = Recorded
+    try:
+        for seed in seeds:
+            with tempfile.TemporaryDirectory() as tmp:
+                log = os.path.join(tmp, "metrics.jsonl")
+                t0 = time.perf_counter()
+                res = runners.run_stereo_ba_sequence(*frames, cfg, T_rig=T_rig,
+                                                     n_frames=n_frames, seed=seed,
+                                                     batch=batch, pipeline_depth=2,
+                                                     metrics_path=log)
+                wall = time.perf_counter() - t0
+                with open(log) as f:
+                    recs = [json.loads(line) for line in f]
+            orb = ([r for r in recs if r.get("stage") == "extract_orb_fallback"] or [{}])[0]
+            scl = [r for r in recs if r.get("stage") == "stereo_scale"]
+            print(json.dumps({
+                "seed": seed, "platform": jax.devices()[0].platform, "frames": n_frames,
+                "trajectory_length_m": length, "render_s": render_s,
+                **ps.score_metric(np.asarray(res.trajectory), gt, length),
+                "windows_reverted": int(res.per_frame["window_reverted"].sum()),
+                "windows_total": int(res.per_frame["window_reverted"].size),
+                "n_pairs": len(seen["extract"]), "n_retried": orb.get("n_retried", 0),
+                "n_replaced": orb.get("n_replaced", 0),
+                "n_hampel": sum(r["hampel_replaced"] for r in scl),
+                "n_refined": sum(r["refined"] for r in scl),
+                "extract_s": seen["extract_s"], "solve_s": seen["solve_s"], "wall_s": wall,
+                "peak_buffered": seen["stream"].peak_buffered,
+                "peak_rss_gb": ps.peak_rss_gb()}), flush=True)
+            if save_pairs:
+                os.makedirs(save_pairs, exist_ok=True)
+                np.savez(os.path.join(save_pairs, f"stereo_pairs_seed{seed}.npz"),
+                         **trunners._pack_pairs(seen["extract"]))
+    finally:
+        runners._extract_pairs, runners._solve_windows = extract, solve
+        runners.stream.FrameStream = frame_stream
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("command", choices=("orb-pose", "turn", "sequence", "back-half"))
+    ap.add_argument("command", choices=("orb-pose", "turn", "sequence", "back-half",
+                                        "stereo"))
     ap.add_argument("--seeds", default="0", help="comma list, or a range lo-hi")
     ap.add_argument("--frames", type=int, default=300)
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="pairs per call (default: 32, stereo 8)")
     ap.add_argument("--workers", type=int, default=4, help="render processes")
     ap.add_argument("--save-pairs", default=None, metavar="DIR",
-                    help="sequence: write each seed's pairs to DIR/pairs_seed<s>.npz")
+                    help="sequence, stereo: write each seed's pairs under DIR")
     ap.add_argument("--pairs", nargs="*", default=(), help="back-half: saved pair files")
     args = ap.parse_args(argv)
 
@@ -218,7 +312,9 @@ def main(argv=None) -> int:
     elif args.command == "turn":
         turn(seeds)
     elif args.command == "sequence":
-        sequence(seeds, args.frames, args.batch, args.workers, args.save_pairs)
+        sequence(seeds, args.frames, args.batch or 32, args.workers, args.save_pairs)
+    elif args.command == "stereo":
+        stereo(seeds, args.frames, args.batch or 8, args.workers, args.save_pairs)
     else:
         back_half_cmd(args.pairs, args.frames)
     return 0
