@@ -55,12 +55,23 @@ Phases, each reported on its own line:
    pairs, retries, wall time per stage, peak_buffered and device memory,
    and fast_cand and klt_level against their plain versions on the first
    extraction batch of that run, which holds rig pairs (and the ORB retry
-   batch's kernels, if the retry fired).
+   batch's kernels, if the retry fired);
+11. loop: the 236-frame KITTI-sized out-and-back loop course through
+   run_ba_sequence with loop closure on (no ground truth): Sim(3) ATE,
+   endpoint gap and the loops applied against the JAX package's own CPU
+   spread, the wall time of describe, retrieval, verification and the pose
+   graph, and the launches of the loop stage (one pyramid ORB call for the
+   keyframe stack, one per verification); the drift-injected fixture
+   through the loop stage on the card, every applied loop's verification
+   against the port's CPU path with the same samples; and fast_cand, the
+   dense FAST kernel and the extraction kernel against their plain
+   versions at the half-resolution keyframe pyramid's shapes.
 
 Before the last two lines, one JSON object holds the batched, BA, ORB,
-sequence and stereo phases' numbers; the line before the last is a JSON
-object with one entry per kernel (launches per KLT step, per ORB step,
-per pyramid ORB step, in the sequence run and in the stereo run); the
+sequence, stereo and loop phases' numbers; the line before the last is a
+JSON object with one entry per kernel (launches per KLT step, per ORB
+step, per pyramid ORB step, in the sequence run, in the stereo run, in the
+loop run, in its loop stage and per loop-stage call); the
 last line is {"ok": true,
 "device": {...}}. Any failed check raises and
 exits non-zero without that line. Imports nothing of JAX.
@@ -174,6 +185,28 @@ STEREO_STEP_ERR = 1.5 * STEREO_REF_STEP_ERR
 STEREO_ATE_PCT = 1.5 * STEREO_REF_ATE_PCT
 STEREO_RATIO_DEV = 1.5 * STEREO_REF_RATIO_DEV
 STEREO_SCALE_RTOL = 1e-4
+# Loop closure (ROADMAP A13) on the out-and-back loop course
+# (tools/photoreal_loop.py: 236 frames, 376x1241, the configuration of
+# scripts/run_photoreal_loop.py), no ground truth fed, seed LOOP_SEED. The
+# limits come from the JAX package's own CPU runs on the same frames,
+# seeds 0-3 (python -m tests.reference_accuracy loop --course out-and-back
+# --seeds 0-3; loop on: Sim(3) ATE 14.421 / 8.643 / 10.516 / 15.799 % of
+# the length, endpoint gap 1.418 / 0.883 / 2.979 / 0.321 m with the gauge
+# on step 0, the loop (8, 232) with 265 inliers in every seed): at least
+# one loop, and the ATE and the gap within 1.5x its worst seed's. The
+# drift-injected fixture (the JAX package's
+# test_close_loops_on_photoreal_fixture at full width; the reference on
+# the CPU: 8.304 -> 2.374 m with the loop (8, 232), 351 inliers): at least
+# one loop, and the position RMSE below LOOP_DRIFT_GAIN x the drifted
+# chain's. Each applied loop's verification on the card
+# against the port's CPU path with the same samples: inliers within
+# LOOP_INLIER_TOL, the same branch, rotation and translation direction
+# within LOOP_R_TOL / LOOP_DIR_TOL (the CPU parity tests' tolerances).
+LOOP_SEED, LOOP_BATCH = 0, 32
+LOOP_REF_ATE_PCT, LOOP_REF_GAP_M = 15.799405, 2.979042
+LOOP_ATE_PCT, LOOP_GAP_M = 1.5 * LOOP_REF_ATE_PCT, 1.5 * LOOP_REF_GAP_M
+LOOP_DRIFT_GAIN = 0.7
+LOOP_INLIER_TOL, LOOP_R_TOL, LOOP_DIR_TOL = 3, 2e-3, 2e-3
 
 
 def _check(cond: bool, what: str) -> None:
@@ -1746,6 +1779,213 @@ def phase_stereo(dev) -> tuple[dict, dict]:
                 scale_card_vs_cpu=dmax, hampel=reps), kernels
 
 
+@contextlib.contextmanager
+def loop_recording():
+    """Record, during one run with loop closure on, the launch counts of
+    the loop stage, of its describe call and of each verification call
+    (loopclose._vo_pairs), and the first inputs per shape that the
+    describe call gives fast_cand, the dense FAST kernel and the
+    extraction kernel. Yields {"stage": counts, "describe": counts,
+    "pairs": [counts per call], "inputs": {(kernel, H, W): args}}."""
+    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.pipeline import loopclose, runners
+
+    rec = {"pairs": [], "inputs": {}}
+    in_describe = []
+
+    def counted(module, name, key, keep_inputs=False):
+        fn = getattr(module, name)
+
+        def run(*args, **kw):
+            before = launches_now()
+            if keep_inputs:
+                in_describe.append(True)
+            try:
+                out = fn(*args, **kw)
+            finally:
+                if keep_inputs:
+                    in_describe.pop()
+            diff = {k: v - before[k] for k, v in launches_now().items()}
+            if key == "pairs":
+                rec["pairs"].append(diff)
+            else:
+                rec[key] = diff
+            return out
+
+        return patched(module, name, run)
+
+    def first_input(module, name, kernel):
+        fn = getattr(module, name)
+
+        def run(*args, **kw):
+            if in_describe:
+                rec["inputs"].setdefault((kernel, *args[0].shape[-2:]), args)
+            return fn(*args, **kw)
+
+        return patched(module, name, run)
+
+    with contextlib.ExitStack() as stack:
+        for cm in (counted(runners, "_loop_stage", "stage"),
+                   counted(loopclose, "_describe_batch", "describe", keep_inputs=True),
+                   counted(loopclose, "_vo_pairs", "pairs"),
+                   first_input(fast, "fast_candidates_kernel", "fast_cand"),
+                   first_input(fast, "fast_score_map_kernel", "fast"),
+                   first_input(klt, "extract_windows_kernel", "extract")):
+            stack.enter_context(cm)
+        yield rec
+
+
+def loop_verify_card_vs_cpu(loops, store, est, vo_half, dev) -> list:
+    """verify_loop on the card and on the port's CPU path for each loop
+    (i, j), with the same samples (drawn from the CPU path's match masks),
+    held to LOOP_*_TOL. Returns [(i, j, inliers card / CPU, |dR|_F, dir)]."""
+    from epivo_tpu_torch import ransac
+    from epivo_tpu_torch.pipeline import loopclose, vo
+
+    kf = store.as_dict()
+    out = []
+    for lp in loops:
+        i, j = lp.i, lp.j
+        t_next = float(np.linalg.norm((np.linalg.inv(est[i]) @ est[i + 1])[:3, 3]))
+        src = torch.from_numpy(np.stack([kf[i], kf[i]]))
+        tgt = torch.from_numpy(np.stack([kf[j], kf[i + 1]]))
+        _, _, status = vo.orb_associate(src, tgt, vo_half)
+        gen = torch.Generator().manual_seed(1000 + i + j)
+        smp = ransac._sample_indices(gen, vo_half.ransac.hypotheses(), status.shape[-1],
+                                     status, device="cpu", lead=(2,))
+        rc, rp = (loopclose.verify_loop(kf[i], kf[j], kf[i + 1], t_next, vo_half, None,
+                                        ransac_samples=smp, device=d) for d in (dev, "cpu"))
+        _check(rc is not None and rp is not None,
+               f"loop ({i}, {j}): verification on the card {rc is not None}, on the CPU "
+               f"{rp is not None}")
+        dr = float(np.linalg.norm(rc.T_meas[:3, :3] - rp.T_meas[:3, :3]))
+        nc, npc = np.linalg.norm(rc.T_meas[:3, 3]), np.linalg.norm(rp.T_meas[:3, 3])
+        dd = 0.0 if rc.zero_baseline else float(np.linalg.norm(
+            rc.T_meas[:3, 3] / nc - rp.T_meas[:3, 3] / npc))
+        print(f"loop: verification of ({i}, {j}) card vs CPU, same samples: inliers "
+              f"{rc.n_inliers} / {rp.n_inliers}, zero baseline {rc.zero_baseline} / "
+              f"{rp.zero_baseline}, |dR|_F={dr:.3g} dir={dd:.3g}")
+        _check(rc.zero_baseline == rp.zero_baseline
+               and abs(rc.n_inliers - rp.n_inliers) <= LOOP_INLIER_TOL
+               and dr < LOOP_R_TOL and dd < LOOP_DIR_TOL,
+               f"loop ({i}, {j}) verification card vs CPU beyond the tolerances")
+        out.append((i, j, rc.n_inliers, rp.n_inliers, dr, dd))
+    return out
+
+
+def phase_loop(dev) -> tuple[dict, dict]:
+    """Loop closure: the out-and-back loop course through run_ba_sequence
+    with loop closure on (no ground truth), held to the JAX package's CPU
+    spread (LOOP_* above), with the loop stage's launches per call; the
+    drift-injected fixture through the loop stage on the card, with every
+    applied loop's verification against the CPU; and fast_cand, the dense
+    FAST kernel and the extraction kernel against their plain versions at
+    the keyframe pyramid's shapes. Returns (the phase's numbers, the kernel
+    rows)."""
+    from epivo_tpu_torch.datasets import photoreal
+    from epivo_tpu_torch.geometry import camera
+    from epivo_tpu_torch.pipeline import config as pc, loopclose, runners
+    from epivo_tpu_torch.tools import photoreal_loop as pl
+
+    t0 = time.perf_counter()
+    frames, gt, _, length = pl.render_loop("out-and-back",
+                                           workers=max(1, min(8, os.cpu_count() or 1)))
+    render_s = time.perf_counter() - t0
+    gen_frames = photoreal.loop_sequence(H=H, W=W)[0]
+    for k, a in zip(range(2), gen_frames):
+        _check(np.array_equal(frames[k], a), f"loop frame {k} differs from the generator's")
+    print(f"loop: rendered {len(frames)} frames {H}x{W} in {render_s:.1f} s (trajectory "
+          f"{length:.2f} m), bit-equal on frames 0-1")
+
+    # The runner path: run_ba_sequence with loop closure on.
+    cfg = pl.ba_config(pc, camera, enabled=True)
+    reset_launches()
+    with loop_recording() as rec:
+        res = runners.run_ba_sequence(frames, cfg, gt_poses=None, seed=LOOP_SEED,
+                                      batch=LOOP_BATCH, pipeline_depth=2, device=dev)
+    launches = launches_now()
+    score = pl.score_loop(res.trajectory, gt, length)
+    st, ls = res.stats, res.stats["loop"]
+    loops = pl.loops_report(res.loops)
+    print(f"loop: run_ba_sequence, loop closure on, no ground truth, seed {LOOP_SEED}: Sim(3) "
+          f"ATE {score['ate_sim3_rmse_m']:.4f} m = {score['ate_sim3_pct_of_length']:.3f} % of "
+          f"the length, endpoint gap {score['endpoint_gap_gauge0_m']:.3f} m, length ratio "
+          f"{score['length_ratio_gauge0']:.4f} (gauge on step 0); loops applied "
+          f"{[(l['i'], l['j'], l['inliers'], l['retrieval_score'], round(l['sigma'], 4)) for l in loops]}"
+          f" (i, j, inliers, retrieval score, sigma)")
+    print(f"loop: stage: {ls['keyframes']} keyframes, {ls['candidates']} candidates, "
+          f"{ls['verifications']} verifications, {ls['scale_checks']} scale-drift checks, "
+          f"{ls['loops_applied']} loops, pose graph {ls['pose_graph']}; wall: extraction "
+          f"{st['extract_s']:.1f} s, ORB retry {st['orb_retry_s']:.1f} s, scale graph "
+          f"{st['scale_graph_s']:.2f} s, window solve {st['solve_s']:.2f} s, describe "
+          f"{ls['describe_s']:.3f} s, retrieval {ls['retrieval_s']:.3f} s, verification "
+          f"{ls['verify_s']:.2f} s, pose graph {ls['pose_graph_s']:.3f} s, loop stage "
+          f"{ls['loop_s']:.2f} s, run_ba_sequence total {st['total_s']:.1f} s")
+    n_calls = 1 + ls["verifications"] + ls["scale_checks"]
+    per_call = rec["describe"]
+    print(f"loop: launches in the run {launches}; in the loop stage {rec['stage']}, its "
+          f"describe call {per_call}, per verification call "
+          f"{rec['pairs'][0] if rec['pairs'] else None} ({len(rec['pairs'])} calls)")
+    _check(per_call["fast_cand"] > 0 and per_call["fast"] > 0 and per_call["extract"] > 0
+           and per_call["klt_level"] == 0,
+           f"the loop stage's describe call did not run through the kernels: {per_call}")
+    _check(len(rec["pairs"]) == n_calls - 1
+           and all(p == per_call for p in rec["pairs"])
+           and rec["stage"] == {k: v * n_calls for k, v in per_call.items()},
+           f"loop stage launches {rec['stage']} != {n_calls} x {per_call}")
+
+    # The drift-injected fixture on the card, and its loops' verification
+    # against the CPU.
+    reset_launches()
+    drift = pl.run_drift(frames, dev)
+    drift_launches = launches_now()
+    print(f"loop: drift fixture: position RMSE {drift['ate_before_m']:.3f} m -> "
+          f"{drift['ate_after_m']:.3f} m, loops {[(l['i'], l['j'], l['inliers']) for l in drift['loops']]}"
+          f", {drift['stats']['verifications']} verifications, wall {drift['wall_s']:.2f} s, "
+          f"launches {drift_launches}")
+    _check(len(drift["loops"]) >= 1
+           and drift["ate_after_m"] < LOOP_DRIFT_GAIN * drift["ate_before_m"],
+           f"drift fixture: {len(drift['loops'])} loops, RMSE {drift['ate_before_m']:.3f} -> "
+           f"{drift['ate_after_m']:.3f} m")
+    cfg_d = pl.ba_config(pc, camera, pl.DRIFT, enabled=True)
+    store = pl.keyframes(loopclose, frames, cfg_d)
+    applied = [loopclose.Loop(l["i"], l["j"], None, l["inliers"], l["retrieval_score"])
+               for l in drift["loops"]]
+    verify = loop_verify_card_vs_cpu(applied, store, pl.drift_chain(gt),
+                                     runners._loop_vo_config(cfg_d), dev)
+
+    # The kernels at the keyframe pyramid's shapes, on the describe call's
+    # inputs of the runner run.
+    inputs = rec["inputs"]
+    kernels = {"fast_cand": {}, "fast": {}, "extract": {}}
+    for (kernel, Hl, Wl), args in sorted(inputs.items(), key=lambda kv: -kv[0][1]):
+        img = args[0]
+        tag = f"{Hl}x{Wl}_B{img.shape[0]}"
+        if kernel == "fast_cand":
+            kernels[kernel][tag] = cand_report(img, args[1], "loop: describe")
+        elif kernel == "fast":
+            kernels[kernel][tag] = dense_report(img, args[1], "loop: describe")
+        else:
+            kernels[kernel][f"S{args[3]}_{tag}"] = extract_report(*args[:4],
+                                                                  f" (loop: describe {tag})")
+    _check(all(kernels[k] for k in kernels), f"loop: no recorded inputs for "
+           f"{[k for k in kernels if not kernels[k]]}")
+    print(f"loop: limits: Sim(3) ATE <= {LOOP_ATE_PCT:.3f} %, endpoint gap <= "
+          f"{LOOP_GAP_M:.3f} m (1.5x the JAX package's worst over its CPU seeds 0-3: "
+          f"{LOOP_REF_ATE_PCT} %, {LOOP_REF_GAP_M} m)")
+    _check(len(loops) >= 1 and score["ate_sim3_pct_of_length"] <= LOOP_ATE_PCT
+           and score["endpoint_gap_gauge0_m"] <= LOOP_GAP_M,
+           f"loop on: {len(loops)} loops, Sim(3) ATE {score['ate_sim3_pct_of_length']:.3f} % (limit "
+           f"{LOOP_ATE_PCT:.3f}) or endpoint gap {score['endpoint_gap_gauge0_m']:.3f} m "
+           f"(limit {LOOP_GAP_M:.3f})")
+    return dict(render_s=render_s, length_m=length, seed=LOOP_SEED, score=score, loops=loops,
+                stats={k: ls[k] for k in ls}, run_stats={k: st[k] for k in (
+                    "n_pairs", "extract_s", "solve_s", "total_s")},
+                launches=launches, launches_stage=rec["stage"], launches_per_call=per_call,
+                drift={k: drift[k] for k in ("ate_before_m", "ate_after_m", "loops", "wall_s")},
+                drift_launches=drift_launches, verify_card_vs_cpu=verify), kernels
+
+
 KERNELS = {
     "fast": ("epivo_tpu_torch/csrc/fast.cu",
              "epivo_tpu/frontend/pallas_fast.py:33"),
@@ -1783,15 +2023,20 @@ def main() -> int:
     stereo, stereo_kernels = phase_stereo(dev)
     for k, rows in stereo_kernels.items():
         report[k]["stereo"] = rows
+    loop, loop_kernels = phase_loop(dev)
+    for k, rows in loop_kernels.items():
+        report[k]["loop"] = rows
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"batched": batched, "ba": ba_report, "orb": orb,
-                      "sequence": sequence, "stereo": stereo}))
+                      "sequence": sequence, "stereo": stereo, "loop": loop}))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "launches_per_orb_step": orb["launches_per_step"][k],
          "launches_per_pyramid_orb_step": orb["pyramid"]["launches_per_step"][k],
          "launches_sequence": sequence["launches"][k],
-         "launches_stereo": stereo["launches"][0][k], **report[k]}
+         "launches_stereo": stereo["launches"][0][k], "launches_loop": loop["launches"][k],
+         "launches_loop_stage": loop["launches_stage"][k],
+         "launches_per_loop_call": loop["launches_per_call"][k], **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

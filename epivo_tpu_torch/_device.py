@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,15 @@ def constant(data, dtype: torch.dtype, device) -> torch.Tensor:
     so the batched entry points stay free of host syncs.
     """
     return torch.as_tensor(data, dtype=dtype).to(device, non_blocking=True)
+
+
+def upload(frames: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``: staged through pinned memory and copied
+    without blocking, so the host goes on issuing work."""
+    t = torch.from_numpy(np.ascontiguousarray(frames))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def kernel_wanted(x: torch.Tensor, use_kernel: bool | None) -> bool:

@@ -4,9 +4,9 @@
 Field names and defaults match the reference, so
 :func:`epivo_tpu_torch.convert.config_from_reference` can copy them one by
 one. ``BAConfig`` nests ``ScaleConfig`` (read by the scale graph and the
-mono chain), ``GlobalBAConfig`` and ``LoopConfig``; the last two stages
-are not ported yet (the runners refuse them when enabled), and their
-fields are carried so that configs convert field for field.
+mono chain), ``GlobalBAConfig`` and ``LoopConfig`` (read by the loop
+stage). The global-BA stage is not ported yet (the runners refuse it when
+enabled); its fields are carried so that configs convert field for field.
 """
 
 from __future__ import annotations
@@ -133,8 +133,9 @@ class GlobalBAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LoopConfig:
-    """Loop closure (``pipeline/loopclose.py`` in the reference; not ported
-    yet)."""
+    """Loop closure (:mod:`epivo_tpu_torch.pipeline.loopclose`): keyframe
+    retrieval, ORB verification and the Sim(3) drift correction of the BA
+    runners' post-stage."""
 
     enabled: bool = False
     keyframe_stride: int = 8  # store every Nth frame (half-res) as keyframe

@@ -8,7 +8,10 @@ the trajectory; ``run_stereo_ba_sequence`` does the same on a stereo rig
 in a doubled frame index, with the metric scale of every step taken from
 the calibrated baseline (no ground truth needed);
 ``run_gt_triangulation_sequence`` triangulates the extracted matches
-against the ground-truth motion.
+against the ground-truth motion. With ``config.loop.enabled`` both BA
+runners keep half-resolution keyframes off their frame stream and close
+loops on the finished trajectory (:func:`_loop_stage`,
+:mod:`loopclose`).
 
 Host/device split: frame decode and GT stay on the host; frames go to the
 device in batches, and each batch of pairs is one batched step
@@ -22,20 +25,20 @@ Each runner works on ``device`` (default: the CUDA card; it raises when
 there is none, see :func:`_device.runner_device`) and draws its RANSAC
 samples from one ``torch.Generator`` seeded from ``seed``. Not ported
 yet, and refused with ``NotImplementedError`` rather than dropped: the
-multi-device ``mesh`` (ROADMAP A14), the global-BA polish
-(``config.global_ba.enabled``, A14) and loop closure
-(``config.loop.enabled``, A13).
+multi-device ``mesh`` (ROADMAP A14) and the global-BA polish
+(``config.global_ba.enabled``, A14).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Iterable, NamedTuple
 
 import numpy as np
 import torch
 
-from epivo_tpu_torch._device import constant, runner_device
+from epivo_tpu_torch._device import constant, runner_device, upload as _upload
 from epivo_tpu_torch.eval import metrics
 from epivo_tpu_torch.geometry import camera as cam, epipolar, se3
 from epivo_tpu_torch.pipeline import ba as ba_mod, scale as scale_mod, stream, vo
@@ -52,7 +55,7 @@ class SequenceResult(NamedTuple):
     cloud: np.ndarray  # [N, 3] triangulated world points
     cloud_limits: np.ndarray  # [F-1] cumulative counts per frame (lims file)
     per_frame: dict  # diagnostics arrays
-    loops: tuple = ()  # applied loop edges (loop closure is not ported)
+    loops: tuple = ()  # applied loop edges (loopclose.Loop), loop closure on
     stats: dict | None = None  # counts and host wall seconds per stage
     pair_data: dict | None = None  # run_ba_sequence: the extracted pairs
 
@@ -67,18 +70,6 @@ def _refuse(mesh, config: BAConfig | None = None, global_ba: bool = True) -> Non
         raise NotImplementedError(
             "config.global_ba.enabled: the global-BA polish is not ported "
             "yet (ROADMAP A14)")
-    if config is not None and config.loop.enabled:
-        raise NotImplementedError(
-            "config.loop.enabled: loop closure is not ported yet (ROADMAP A13)")
-
-
-def _upload(frames: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host frame stack on ``dev``: staged through pinned memory and
-    copied without blocking, so the host goes on issuing work."""
-    t = torch.from_numpy(np.ascontiguousarray(frames))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
 
 
 def _batched_vo(config: VOConfig, collect_cloud: bool = True):
@@ -739,6 +730,71 @@ def prepare_mono_windows(
                        pair_data=pair_data)
 
 
+def _loop_vo_config(config: BAConfig) -> VOConfig:
+    """The two-view configuration of the loop stage: half-resolution
+    keyframes (the camera halved) and pyramid ORB with the loop's keypoint
+    budget. A revisit at a lateral offset sees the scene at another scale,
+    and single-scale descriptors die of it (the reference measured 0-5
+    inliers single-scale against 27-54 with the pyramid on its offset loop
+    course)."""
+    c = config.camera
+    half_cam = cam.Pinhole(c.fx / 2, c.fy / 2, c.cx / 2, c.cy / 2,
+                           c.width // 2, c.height // 2)
+    return VOConfig(camera=half_cam,
+                    frontend=dataclasses.replace(
+                        config.frontend, max_keypoints=config.loop.max_keypoints,
+                        orb_pyramid=True),
+                    ransac=config.ransac, lm=config.lm)
+
+
+def _loop_stage(traj: np.ndarray, kf_store, config: BAConfig, seed: int, mlog,
+                device=None, stats: dict | None = None):
+    """The loop-closure post-stage of both BA runners: keyframe retrieval,
+    ORB verification and Sim(3) / SE(3) drift correction on the finished
+    trajectory (:func:`loopclose.close_loops`), the lever on the
+    long-trajectory drift that the short-span stages cannot reach.
+    Returns (trajectory, applied loops); ``stats`` receives the stage's
+    counts and host wall seconds, ``loop_s`` the whole stage."""
+    from epivo_tpu_torch.pipeline import loopclose
+
+    stats = {} if stats is None else stats
+    t0 = time.perf_counter()
+    out = loopclose.close_loops(traj, kf_store, config, _loop_vo_config(config),
+                                seed=seed, mlog=mlog, device=device, stats=stats)
+    stats["loop_s"] = time.perf_counter() - t0
+    return out
+
+
+def _keyframe_tee(frames: Iterable[np.ndarray], config: BAConfig):
+    """(frames, store): ``frames`` passed through while a
+    :class:`loopclose.KeyframeStore` keeps each keyframe k and its adjacent
+    frame k+1 (the verification's norm-recovery pair) as half-resolution
+    uint8 under the budget; (frames, None) with loop closure off."""
+    if not config.loop.enabled:
+        return frames, None
+    from epivo_tpu_torch.pipeline import loopclose
+
+    store = loopclose.KeyframeStore(config.loop.keyframe_stride, config.loop.keyframe_budget)
+
+    def tee():
+        for idx, f in enumerate(frames):
+            store.offer(idx, f)
+            yield f
+
+    return tee(), store
+
+
+def _close_loops(traj, store, config, seed, mlog, device, stats):
+    """Run :func:`_loop_stage` when the runner kept keyframes; records its
+    stats under ``stats["loop"]``. Returns (trajectory, loops tuple)."""
+    if store is None or not store:
+        return traj, ()
+    stats["loop"] = {}
+    traj, loops = _loop_stage(traj, store, config, seed, mlog, device=device,
+                              stats=stats["loop"])
+    return traj, tuple(loops)
+
+
 def run_ba_sequence(
     frames: Iterable[np.ndarray],
     config: BAConfig,
@@ -775,6 +831,12 @@ def run_ba_sequence(
     ``stats`` holds the pair, retry, replace, measurement and window
     counts and the host wall seconds of each stage, its ``pair_data`` the
     extracted pairs (see :func:`_extract_pairs`).
+
+    With ``config.loop.enabled`` a keyframe tee on the frame stream keeps
+    every ``keyframe_stride``-th frame and its successor at half
+    resolution, and the loop stage (:func:`_loop_stage`) corrects the
+    finished trajectory; the result's ``loops`` holds the applied loops
+    and ``stats["loop"]`` the stage's counts and wall seconds.
     """
     _refuse(mesh, config)
     t_start = time.perf_counter()
@@ -782,6 +844,9 @@ def run_ba_sequence(
     ckpt = (ckpt_mod.SequenceCheckpointer(checkpoint_dir, every=checkpoint_every)
             if checkpoint_dir else None)
     stats: dict = {}
+    if n_frames is None and hasattr(frames, "__len__"):
+        n_frames = len(frames)  # the tee below hides the length
+    frames, kf_store = _keyframe_tee(frames, config)
     win = prepare_mono_windows(frames, config, gt_poses=gt_poses, seed=seed,
                                ckpt=ckpt, use_orb=use_orb, n_frames=n_frames,
                                mlog=mlog, batch=batch,
@@ -812,6 +877,7 @@ def run_ba_sequence(
         zetas[:, :3, 3] = (t / norms) * win.c_scale[: zetas.shape[0], None]
     traj = ba_mod.trajectory_from_zetas(torch.from_numpy(
         np.ascontiguousarray(zetas, np.float32))).numpy()
+    traj, loops = _close_loops(traj, kf_store, config, seed, mlog, device, stats)
     mlog.close()
 
     ate = rpe_t = None
@@ -835,6 +901,7 @@ def run_ba_sequence(
             "window_r_norm": np.asarray(out.r_norm),
             "window_reverted": np.asarray(out.reverted),
         },
+        loops=loops,
         stats=stats,
         pair_data=win.pair_data,
     )
@@ -1092,8 +1159,11 @@ def run_stereo_ba_sequence(
     The result's ``stats`` holds the pair, retry and replace counts, the
     frame stream's ``peak_buffered``, the Hampel replacements and window
     counts, and the host wall seconds of each stage; its ``pair_data``
-    the extracted pairs. Refused: ``mesh`` (A14) and ``config.loop`` (A13);
-    the stereo runner has no global-BA stage.
+    the extracted pairs. With ``config.loop.enabled`` the keyframe tee
+    takes the LEFT frames, indexed by frame k (not the doubled index): the
+    trajectory the loop stage corrects is the per-frame left-camera chain
+    (see :func:`run_ba_sequence`). Refused: ``mesh`` (A14); the stereo
+    runner has no global-BA stage.
     """
     _refuse(mesh, config, global_ba=False)
     t_start = time.perf_counter()
@@ -1106,6 +1176,7 @@ def run_stereo_ba_sequence(
             frames_right = [np.asarray(f, np.float32) for f in frames_right]
             n_frames = min(len(frames_left), len(frames_right))
     F = n_frames
+    frames_left, kf_store = _keyframe_tee(frames_left, config)
 
     def doubled_stream():
         for k, (l_img, r_img) in enumerate(zip(frames_left, frames_right)):
@@ -1157,6 +1228,8 @@ def run_stereo_ba_sequence(
         _post_lm_rescale(zetas, n_steps, ss, T_rig, config, mlog)
     traj = ba_mod.stereo_left_trajectory(torch.from_numpy(
         np.ascontiguousarray(zetas[: 2 * n_steps], np.float32))).numpy()
+    t3 = time.perf_counter()
+    traj, loops = _close_loops(traj, kf_store, config, seed, mlog, device, stats)
     mlog.close()
 
     ate = rpe_t = None
@@ -1170,8 +1243,7 @@ def run_stereo_ba_sequence(
     stats.update(n_scale_steps=len(ss.ks), n_refined=int(ss.refined.sum()),
                  n_hampel=int((ss.replaced0 | ss.replaced1).sum()),
                  n_windows=len(anchors), n_reverted=int(out.reverted.sum()),
-                 scale_s=t1 - t0, solve_s=t2 - t1,
-                 rescale_s=time.perf_counter() - t2,
+                 scale_s=t1 - t0, solve_s=t2 - t1, rescale_s=t3 - t2,
                  total_s=time.perf_counter() - t_start)
     return SequenceResult(
         trajectory=traj,
@@ -1184,6 +1256,7 @@ def run_stereo_ba_sequence(
             "window_r_norm": np.asarray(out.r_norm),
             "window_reverted": np.asarray(out.reverted),
         },
+        loops=loops,
         stats=stats,
         pair_data=pair_data,
     )

@@ -41,7 +41,18 @@ nothing:
     python -m tests.reference_accuracy turn --seeds 0-9
     python -m tests.reference_accuracy sequence --seeds 0,1,2 [--save-pairs DIR]
     python -m tests.reference_accuracy back-half --pairs DIR/pairs_seed0.npz ...
+- ``loop``: loop closure on the photoreal loop courses, in the form of
+  the port's ``tools/photoreal_loop.py`` (the same frames, rendered by
+  the port's renderer, configuration and scoring): for each ``--course``
+  (``out-and-back``, ``offset``, ``two-lap``) and seed,
+  ``run_ba_sequence`` with no ground truth and loop closure off, then the
+  loop stage (``runners._loop_stage``) on that trajectory with the
+  keyframes the runner's tee keeps (the two-lap course also in greedy
+  mode); ``--course drift``: the drift-injected fixture, ``close_loops``
+  on the out-and-back ground truth with the tool's per-step drift.
+
     python -m tests.reference_accuracy stereo --frames 60 --seeds 0-3
+    python -m tests.reference_accuracy loop --course out-and-back --seeds 0-3
 """
 
 from __future__ import annotations
@@ -289,10 +300,61 @@ def stereo(seeds, n_frames: int, batch: int, workers: int, save_pairs=None) -> N
         runners.stream.FrameStream = frame_stream
 
 
+def loop(course: str, seeds, batch: int, workers: int) -> None:
+    import dataclasses
+
+    import jax
+
+    from epivo_tpu.geometry import camera
+    from epivo_tpu.pipeline import config as jc, loopclose, runners
+    from epivo_tpu_torch.tools import photoreal_loop as pl
+
+    t0 = time.perf_counter()
+    frames, gt, _, length = pl.render_loop("out-and-back" if course == "drift" else course,
+                                           workers)
+    render_s = time.perf_counter() - t0
+    platform = jax.devices()[0].platform
+    if course == "drift":
+        cfg = pl.ba_config(jc, camera, pl.DRIFT, enabled=True)
+        est = pl.drift_chain(gt)
+        store = pl.keyframes(loopclose, frames, cfg)
+        for seed in seeds:
+            t1 = time.perf_counter()
+            traj, loops = runners._loop_stage(est, store, cfg, seed, None)
+            print(json.dumps({"fixture": "drift", "seed": seed, "platform": platform,
+                              "ate_before_m": pl.position_rmse(est, gt),
+                              "ate_after_m": pl.position_rmse(traj, gt),
+                              "loops": pl.loops_report(loops),
+                              "wall_s": time.perf_counter() - t1}), flush=True)
+        return
+    cfg_off, cfg_on = (pl.ba_config(jc, camera, enabled=on) for on in (False, True))
+    store = pl.keyframes(loopclose, frames, cfg_on)
+    modes = [("loop_on", cfg_on)]
+    if course == "two-lap":
+        modes.append(("loop_greedy", dataclasses.replace(
+            cfg_on, loop=dataclasses.replace(cfg_on.loop, pose_graph=False))))
+    for seed in seeds:
+        t1 = time.perf_counter()
+        res = runners.run_ba_sequence(frames, cfg_off, gt_poses=None, seed=seed, batch=batch)
+        run = {"course": course, "seed": seed, "platform": platform, "frames": len(gt),
+               "trajectory_length_m": length, "render_s": render_s,
+               "keyframes": len(store), "keyframe_stride": store.stride,
+               "loop_off": {**pl.score_loop(np.asarray(res.trajectory), gt, length),
+                            "windows_reverted": int(res.per_frame["window_reverted"].sum()),
+                            "wall_s": time.perf_counter() - t1}}
+        for name, cfg in modes:
+            t2 = time.perf_counter()
+            traj, loops = runners._loop_stage(np.asarray(res.trajectory), store, cfg, seed,
+                                              None)
+            run[name] = {**pl.score_loop(np.asarray(traj), gt, length),
+                         "loops": pl.loops_report(loops), "wall_s": time.perf_counter() - t2}
+        print(json.dumps(run), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("command", choices=("orb-pose", "turn", "sequence", "back-half",
-                                        "stereo"))
+                                        "stereo", "loop"))
     ap.add_argument("--seeds", default="0", help="comma list, or a range lo-hi")
     ap.add_argument("--frames", type=int, default=300)
     ap.add_argument("--batch", type=int, default=None,
@@ -301,6 +363,8 @@ def main(argv=None) -> int:
     ap.add_argument("--save-pairs", default=None, metavar="DIR",
                     help="sequence, stereo: write each seed's pairs under DIR")
     ap.add_argument("--pairs", nargs="*", default=(), help="back-half: saved pair files")
+    ap.add_argument("--course", default="out-and-back",
+                    choices=("out-and-back", "offset", "two-lap", "drift"), help="loop")
     args = ap.parse_args(argv)
 
     import jax
@@ -315,6 +379,8 @@ def main(argv=None) -> int:
         sequence(seeds, args.frames, args.batch or 32, args.workers, args.save_pairs)
     elif args.command == "stereo":
         stereo(seeds, args.frames, args.batch or 8, args.workers, args.save_pairs)
+    elif args.command == "loop":
+        loop(args.course, seeds, args.batch or 32, args.workers)
     else:
         back_half_cmd(args.pairs, args.frames)
     return 0

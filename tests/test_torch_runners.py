@@ -440,8 +440,12 @@ def test_runners_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A14"):
         trunners.run_ba_sequence(frames, BAConfig(global_ba=GlobalBAConfig(enabled=True)),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        trunners.run_ba_sequence(frames, BAConfig(loop=LoopConfig(enabled=True)),
+    # Loop closure is ported: it passes the refusal, and global BA beside
+    # it is still refused.
+    trunners._refuse(None, BAConfig(loop=LoopConfig(enabled=True)))
+    with pytest.raises(NotImplementedError, match="A14"):
+        trunners.run_ba_sequence(frames, BAConfig(loop=LoopConfig(enabled=True),
+                                                  global_ba=GlobalBAConfig(enabled=True)),
                                  device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

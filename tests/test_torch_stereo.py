@@ -22,7 +22,8 @@ rotation and 4.9e-7 in position on the rendered fixture's pairs, where
 the f64 refinement converges on no step; ``test_torch_stereo_scale.py``
 covers the steps where it does).
 
-``mesh`` and ``config.loop.enabled`` still raise ``NotImplementedError``.
+``mesh`` still raises ``NotImplementedError``; ``config.loop.enabled``
+passes (``tests/test_torch_loopclose.py`` runs it).
 """
 
 import json
@@ -173,9 +174,12 @@ def test_stereo_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A14"):
         trunners.run_stereo_ba_sequence(L, R, TCFG, T_rig=np.eye(4), mesh=object(),
                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    # Loop closure is ported: it passes the refusal, and the mesh beside it
+    # is still refused.
+    trunners._refuse(None, TBAConfig(loop=LoopConfig(enabled=True)), global_ba=False)
+    with pytest.raises(NotImplementedError, match="A14"):
         trunners.run_stereo_ba_sequence(L, R, TBAConfig(loop=LoopConfig(enabled=True)),
-                                        T_rig=np.eye(4), device="cpu")
+                                        T_rig=np.eye(4), mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trunners.run_stereo_ba_sequence(L, R, TCFG, T_rig=np.eye(4))
