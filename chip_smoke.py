@@ -65,13 +65,25 @@ Phases, each reported on its own line:
    through the loop stage on the card, every applied loop's verification
    against the port's CPU path with the same samples; and fast_cand, the
    dense FAST kernel and the extraction kernel against their plain
-   versions at the half-resolution keyframe pyramid's shapes.
+   versions at the half-resolution keyframe pyramid's shapes;
+12. five-point and global BA: vo_step with RansacConfig(solver="5pt") on
+   the corridor pair (5,120 candidates per pair): a KLT step's launches,
+   step time, the five-point stage's device time and ATen operators per
+   call, the pose against the ground truth and the JAX package's CPU
+   spread, the kernel path against the plain path; vo_step_batched at
+   B = 8 with no host sync, pairs/s and peak device memory; five_point on
+   the card against the port's CPU path on the same 512 samples (sets of
+   candidates up to sign); and the global-BA polish on phase 9's three
+   no-GT runs over their own zetas and pairs: the paired Sim(3) ATE delta
+   against the JAX package's CPU spread, kept step norms, accepted steps,
+   the card against the port's CPU and a bit-equal repeat.
 
 Before the last two lines, one JSON object holds the batched, BA, ORB,
-sequence, stereo and loop phases' numbers; the line before the last is a
-JSON object with one entry per kernel (launches per KLT step, per ORB
-step, per pyramid ORB step, in the sequence run, in the stereo run, in the
-loop run, in its loop stage and per loop-stage call); the
+sequence, stereo, loop, five-point and global phases' numbers; the line
+before the last is a JSON object with one entry per kernel (launches per
+KLT step, per ORB step, per pyramid ORB step, in the sequence run, in the
+stereo run, in the loop run, in its loop stage, per loop-stage call and
+per 5-point step); the
 last line is {"ok": true,
 "device": {...}}. Any failed check raises and
 exits non-zero without that line. Imports nothing of JAX.
@@ -207,6 +219,46 @@ LOOP_REF_ATE_PCT, LOOP_REF_GAP_M = 15.799405, 2.979042
 LOOP_ATE_PCT, LOOP_GAP_M = 1.5 * LOOP_REF_ATE_PCT, 1.5 * LOOP_REF_GAP_M
 LOOP_DRIFT_GAIN = 0.7
 LOOP_INLIER_TOL, LOOP_R_TOL, LOOP_DIR_TOL = 3, 2e-3, 2e-3
+# The 5-point solver (ROADMAP A11) on the corridor pair at the bench
+# configuration with RansacConfig(solver="5pt"). The JAX package on the CPU
+# over RANSAC seeds FIVE_REF_SEEDS (python -m tests.reference_accuracy
+# five-point --eager; its jit compile did not finish in 6 minutes): worst
+# and median |R - R_gt|_F and direction error; the port
+# holds every step and lane within twice the worst, and the median over the
+# B = 8 lanes' draws within twice the median. The card against the port's
+# CPU path on the same 512 samples, candidates matched as sets up to sign
+# within FIVE_MATCH_TOL Frobenius: at least FIVE_MATCH of each side's exact
+# candidates (Sampson error below FIVE_EXACT on all 5 points) match a valid
+# one on the other side. The solver's other candidates move with float32
+# rounding: on these samples one ulp on the CPU's inputs leaves ~70 % of
+# all valid candidates within the tolerance, and the JAX package against
+# the port, both on the CPU, ~73 %. So the share over all
+# valid candidates is held to the CPU's own one-ulp control, measured in
+# the same run, less FIVE_CONTROL_SLACK.
+FIVE_REF_SEEDS = "0-43"
+FIVE_REF_WORST, FIVE_REF_MEDIAN = (0.002430, 0.045883), (0.002342, 0.045162)
+FIVE_MATCH, FIVE_MATCH_TOL, FIVE_EXACT, FIVE_CONTROL_SLACK = 0.95, 1e-3, 1e-12, 0.05
+# The global-BA polish (ROADMAP A14a) on phase 9's three no-GT runs, over
+# each run's own zetas and pairs. The JAX package on the CPU, seeds 0-3 of
+# tests.reference_accuracy sequence, through the back half with the polish
+# off and on (python -m tests.reference_accuracy global): paired Sim(3) ATE
+# deltas (on - off, pp of the length) -0.442 / +0.263 / +0.319 / +0.195,
+# whose extremes are GLOBAL_REF_DELTA; the median
+# over SEQ_SEEDS must lie within 1.5x those extremes. Step norms kept to
+# GLOBAL_NORM_RTOL. The card against the port's CPU on seed 0's input: the
+# per-zeta rotation difference (largest entry) within GLOBAL_R_TOL at its
+# 95th percentile (the reference's own 1-vs-8-device bound for the solver on
+# synthetic chains, tests/test_global_ba.py:80-82) and within GLOBAL_R_MAX at
+# its largest (the reference's own bound for its sharded against its
+# single-device polish on rendered frames, tests/test_global_ba.py:167): the
+# corridor's last zetas, where the camera reaches the back wall, are
+# ill-conditioned, and one ulp on the input rotations moves one of them by
+# up to 0.025 on a CPU (the control line prints the CPU's own spread);
+# r_norm within GLOBAL_RNORM_RTOL.
+GLOBAL_REF_DELTA = (-0.441746, 0.319116)
+GLOBAL_DELTA = (GLOBAL_REF_DELTA[0] - 0.5 * abs(GLOBAL_REF_DELTA[0]),
+                GLOBAL_REF_DELTA[1] + 0.5 * abs(GLOBAL_REF_DELTA[1]))
+GLOBAL_NORM_RTOL, GLOBAL_R_TOL, GLOBAL_R_MAX, GLOBAL_RNORM_RTOL = 1e-3, 5e-3, 2e-2, 0.05
 
 
 def _check(cond: bool, what: str) -> None:
@@ -1086,26 +1138,30 @@ def level_report(args, what: str) -> dict:
                 max_dg=dg, at_freeze=n_freeze)
 
 
-def work_counts(fn) -> tuple[dict, int]:
-    """One call of fn() under torch.profiler: the ATen operators it issues
-    from the host, by name, and the device activities (kernels, copies)
-    they run."""
+def work_counts(fn) -> tuple[dict, int, float, float]:
+    """One call of fn() under torch.profiler, after a warm-up call: the
+    ATen operators it issues from the host, by name, the device activities
+    (kernels, copies) they run, their summed device ms, and the call's host
+    wall ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    ops, n_device = {}, 0
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops, n_device, device_us = {}, 0, 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             n_device += e.count
+            device_us += e.device_time_total
         elif e.key.startswith("aten::"):
             ops[e.key] = ops.get(e.key, 0) + e.count
     _check(n_device > 0, "the profiler saw no device activity")
-    return ops, n_device
+    return ops, n_device, device_us / 1e3, wall_ms
 
 
 def _rot_dir(T: torch.Tensor):
@@ -1189,8 +1245,8 @@ def phase_ba(dev) -> dict:
     # No loop over windows: the same operators at W = 64 and all windows,
     # and as many device activities up to cuBLAS's choice of GEMM / GEMV
     # kernels by shape (and a few between repeats of one call).
-    (ops_small, dev_small), (ops_all, dev_all) = (work_counts(lambda: run(gpu, 64)),
-                                                  work_counts(lambda: run(gpu)))
+    ops_small, dev_small, *_ = work_counts(lambda: run(gpu, 64))
+    ops_all, dev_all, *_ = work_counts(lambda: run(gpu))
     n_small, n_all = sum(ops_small.values()), sum(ops_all.values())
     diff = {k: (ops_small.get(k, 0), ops_all.get(k, 0))
             for k in set(ops_small) | set(ops_all) if ops_small.get(k, 0) != ops_all.get(k, 0)}
@@ -1480,7 +1536,9 @@ def phase_sequence(dev) -> dict:
     ground-truth scale, and windowed BA with no ground truth at SEQ_SEEDS,
     held to the JAX package's own CPU realizations (SEQ_* above); the scale
     graph on the card against the CPU on the same pairs. Returns (the
-    phase's numbers, the kernel rows at the sequence's shapes)."""
+    phase's numbers, the kernel rows at the sequence's shapes, and (ground
+    truth, trajectory length, [(seed, the no-GT runner's result)]) for
+    phase 12's global polish)."""
     from epivo_tpu_torch.pipeline import scale
     from epivo_tpu_torch.tools import photoreal_ate
 
@@ -1498,7 +1556,7 @@ def phase_sequence(dev) -> dict:
     _check(vo_run["ate_pct_of_length"] <= SEQ_VO_ATE_PCT,
            f"VO sequence ATE {vo_run['ate_pct_of_length']:.3f} % > {SEQ_VO_ATE_PCT} %")
 
-    runs, launches, pair_data, recorded = [], None, None, None
+    runs, results, launches, pair_data, recorded = [], [], None, None, None
     for seed in SEQ_SEEDS:
         reset_launches()
         with (sequence_recording() if launches is None
@@ -1507,6 +1565,7 @@ def phase_sequence(dev) -> dict:
                                               batch=SEQ_BATCH, device=dev)
         if launches is None:
             launches, pair_data, recorded = launches_now(), res.pair_data, rec
+        results.append((seed, res))
         st, acc = run["stats"], run["pairs"]["all"]
         print(f"sequence: run_ba_sequence, no ground truth, seed {seed}: Sim(3) ATE "
               f"{run['ate_sim3_rmse_m']:.4f} m = {run['ate_sim3_pct_of_length']:.3f} % of the "
@@ -1574,7 +1633,7 @@ def phase_sequence(dev) -> dict:
     return dict(render_s=render_s, length_m=length, vo=vo_run, ba=runs, launches=launches,
                 pairs_s=st["n_pairs"] / st["extract_s"], median_ate_pct=med_ate,
                 median_ratio=med_ratio, median_pair_dir=pair_dir, median_flipped=flipped,
-                graph_card_vs_cpu=[dv, dc]), kernels
+                graph_card_vs_cpu=[dv, dc]), kernels, (gt, length, results)
 
 
 @contextlib.contextmanager
@@ -1986,6 +2045,253 @@ def phase_loop(dev) -> tuple[dict, dict]:
                 drift_launches=drift_launches, verify_card_vs_cpu=verify), kernels
 
 
+def candidate_match(Es_a, va, Es_b, vb, tol: float = FIVE_MATCH_TOL) -> tuple[int, int]:
+    """(matched, total): the valid candidates [S, 10, 3, 3] of side a within
+    ``tol`` Frobenius of a valid candidate of the same sample on side b,
+    up to sign."""
+    d = torch.minimum(torch.linalg.norm(Es_a[:, :, None] - Es_b[:, None], dim=(-2, -1)),
+                      torch.linalg.norm(Es_a[:, :, None] + Es_b[:, None], dim=(-2, -1)))
+    d = torch.where(vb[:, None, :], d, torch.inf).amin(-1)  # [S, 10]
+    return int(((d < tol) & va).sum()), int(va.sum())
+
+
+def five_point_card_vs_cpu(p_s, pt_s) -> dict:
+    """five_point on the samples' device against the port's CPU path on
+    the same samples, beside the CPU against itself with one ulp on the
+    inputs: candidates matched as sets up to sign, over all valid ones and
+    over the exact ones (FIVE_* above)."""
+    from epivo_tpu_torch.geometry import essential, fivepoint
+
+    p_c, pt_c = p_s.cpu(), pt_s.cpu()
+    Es_d, v_d = (x.cpu() for x in fivepoint.five_point(p_s, pt_s))
+    Es_c, v_c = fivepoint.five_point(p_c, pt_c)
+    Es_u, v_u = fivepoint.five_point(torch.nextafter(p_c, torch.full_like(p_c, 10.0)), pt_c)
+    exact = lambda Es, v: v & (essential.sampson_error(Es, p_c[:, None], pt_c[:, None])
+                               .amax(-1) < FIVE_EXACT)
+
+    def shares(Es_a, v_a, Es_b, v_b):
+        m_all = [candidate_match(Es_a, v_a, Es_b, v_b), candidate_match(Es_b, v_b, Es_a, v_a)]
+        m_ex = [candidate_match(Es_a, exact(Es_a, v_a), Es_b, v_b),
+                candidate_match(Es_b, exact(Es_b, v_b), Es_a, v_a)]
+        share = lambda m: min(h / max(n, 1) for h, n in m)
+        return m_all, m_ex, share(m_all), share(m_ex)
+
+    m_all, m_ex, share_all, share_ex = shares(Es_d, v_d, Es_c, v_c)
+    _, _, ctrl_all, ctrl_ex = shares(Es_c, v_c, Es_u, v_u)
+    print(f"five_point: card vs CPU on the same {p_s.shape[0]} samples: {m_all[0][1]} / "
+          f"{m_all[1][1]} valid candidates, {m_all[0][0]} / {m_all[1][0]} matched within "
+          f"{FIVE_MATCH_TOL} up to sign ({100 * share_all:.2f} %; the CPU against itself "
+          f"with one ulp on the inputs {100 * ctrl_all:.2f} %, limit that less "
+          f"{100 * FIVE_CONTROL_SLACK:.0f} pp); exact candidates (Sampson < {FIVE_EXACT:g}) "
+          f"{m_ex[0][1]} / {m_ex[1][1]}, matched {m_ex[0][0]} / {m_ex[1][0]} "
+          f"({100 * share_ex:.2f} %, limit {100 * FIVE_MATCH:.0f} %; one-ulp control "
+          f"{100 * ctrl_ex:.2f} %)")
+    _check(m_ex[0][1] > 0 and m_ex[1][1] > 0 and share_ex >= FIVE_MATCH,
+           f"five_point card vs CPU: exact candidates matched {m_ex}")
+    _check(share_all >= ctrl_all - FIVE_CONTROL_SLACK,
+           f"five_point card vs CPU: {100 * share_all:.2f} % of all valid candidates matched, "
+           f"the one-ulp control {100 * ctrl_all:.2f} %")
+    return dict(valid=[m_all[0][1], m_all[1][1]], matched=[m_all[0][0], m_all[1][0]],
+                share=share_all, exact=share_ex, control=ctrl_all, control_exact=ctrl_ex)
+
+
+def phase_five_point(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
+    """The 5-point step (RansacConfig(solver="5pt"), 512 hypotheses, 5,120
+    candidates per pair): launches per step (a KLT step's), step time, the
+    five-point stage's device time and ATen operators per call, the pose
+    against the ground truth, the kernel path against the plain path on
+    the same samples; vo_step_batched at B = n_pairs with no host sync,
+    every lane against the ground truth, pairs/s in turns with single
+    steps and the peak device memory at B = 1 and B = n_pairs; and
+    five_point on the card against the port's CPU path on the step's own
+    512 samples."""
+    from epivo_tpu_torch import ransac
+    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.geometry import fivepoint
+    from epivo_tpu_torch.pipeline import vo
+
+    dev = f0.device
+    fc = cfg.frontend
+    cfg5 = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac, solver="5pt"))
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    T_gt = np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
+    lim_r, lim_d = 2 * FIVE_REF_WORST[0], 2 * FIVE_REF_WORST[1]
+
+    def step(**kw):
+        out = vo.vo_step(f0, f1, gen(), cfg5, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    with recording(fivepoint, "five_point") as rec:
+        first = step()  # warm-up; records the solver's inputs
+    p_s, pt_s = rec[0][:2]
+    _check(p_s.shape == (cfg5.ransac.hypotheses(), 5, 3), f"five_point got {p_s.shape}")
+    n_steps = 5
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, results = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        results.append(step())
+        times.append((time.perf_counter() - t0) * 1e3)
+    mem1 = torch.cuda.max_memory_allocated() / 1e9
+    launches = launches_now()
+    per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0}
+    _check(launches == {k: v * n_steps for k, v in per_step.items()},
+           f"5-point launch counts {launches} != {per_step} per step x {n_steps}")
+    for r in results:
+        _check(torch.equal(r.T, first.T), "repeated 5-point vo_step changed its result")
+    _check(bool(torch.isfinite(first.T).all()), "5-point pose not finite")
+    r_err, d_err = _pose_err(first.T.cpu().numpy(), T_gt)
+    _check(r_err < lim_r and d_err < lim_d,
+           f"5-point pose vs ground truth: |dR|_F={r_err:.4g}, dir={d_err:.4g} (limits "
+           f"{lim_r:.4g} / {lim_d:.4g})")
+    ops, n_dev, dev_ms, wall_ms = work_counts(lambda: fivepoint.five_point(p_s, pt_s))
+    stage = {"aten_ops": sum(ops.values()), "device_activities": n_dev, "device_ms": dev_ms,
+             "wall_ms": wall_ms}
+    step_ms = float(np.median(times))
+    print(f"five_point: vo_step 5pt {H}x{W} {p_s.shape[0]} samples x 10 candidates, "
+          f"n_inliers={int(first.n_inliers)} reverted={bool(first.reverted)} "
+          f"|R-R_gt|_F={r_err:.4g} dir_err={d_err:.4g} (limits {lim_r:.4g} / {lim_d:.4g}); "
+          f"median {step_ms:.2f} ms/step over {n_steps}; launches per step {per_step}; "
+          f"five-point stage per call: {stage['aten_ops']} ATen operators, "
+          f"{stage['device_activities']} device activities, device {stage['device_ms']:.3f} "
+          f"ms, wall {stage['wall_ms']:.2f} ms; max_memory_allocated {mem1:.3f} GB at B=1")
+
+    # Kernel path vs plain path, the same samples.
+    kp = fast.detect(f0, fc.fast_threshold, fc.max_keypoints)
+    flow = klt.track(f0, f1, kp.xy, valid=kp.valid, win=fc.klt_window, levels=fc.klt_levels,
+                     iters=fc.klt_iters, min_eig=fc.klt_min_eig)
+    samples = ransac._sample_indices(gen(), cfg5.ransac.hypotheses(), fc.max_keypoints,
+                                     flow.status, 5, device=dev)
+    r_k = step(ransac_samples=samples)
+    r_p = step(ransac_samples=samples, use_kernel=False)
+    kr, kd = _pose_err(r_k.T.cpu().numpy(), r_p.T.cpu().numpy())
+    _check(kr < STEP_R_TOL and kd < STEP_DIR_TOL,
+           f"5-point kernel vs plain step: |dR|_F={kr:.4g}, dir={kd:.4g}")
+    print(f"five_point: kernel vs plain path, same samples: |dR|_F={kr:.3g} dir={kd:.3g} "
+          f"n_inliers {int(r_k.n_inliers)}/{int(r_p.n_inliers)}")
+
+    card_vs_cpu = five_point_card_vs_cpu(p_s, pt_s)
+
+    # The batched step at B = n_pairs.
+    eps = torch.arange(n_pairs, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
+    img0 = (f0[None] + eps).contiguous()
+    img1 = f1[None].expand(n_pairs, -1, -1).contiguous()
+    batched = lambda: vo.vo_step_batched(img0, img1, gen(), cfg5)
+    first_b = batched()
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = no_sync(batched)
+    torch.cuda.synchronize()
+    memb = torch.cuda.max_memory_allocated() / 1e9
+    launches_b = launches_now()
+    _check(launches_b == per_step, f"batched 5-point launches {launches_b} != {per_step}")
+    _check(torch.equal(res.T, first_b.T), "repeated 5-point vo_step_batched changed its result")
+    errs = [_pose_err(T, T_gt) for T in res.T.cpu().numpy()]
+    r_max, d_max = max(e[0] for e in errs), max(e[1] for e in errs)
+    r_med, d_med = float(np.median([e[0] for e in errs])), float(np.median([e[1] for e in errs]))
+    _check(r_max < lim_r and d_max < lim_d,
+           f"batched 5-point lanes vs ground truth: max |dR|_F={r_max:.4g}, dir={d_max:.4g}")
+    _check(r_med <= 2 * FIVE_REF_MEDIAN[0] and d_med <= 2 * FIVE_REF_MEDIAN[1],
+           f"batched 5-point lanes' median {r_med:.4g} / {d_med:.4g} above twice the "
+           f"reference's median {FIVE_REF_MEDIAN}")
+    times = {"batched": [], "single": []}
+    single = lambda: vo.vo_step(f0, f1, gen(), cfg5)
+    for turn in ("batched", "single", "single", "batched"):
+        times[turn] += [host_ms(batched if turn == "batched" else single) for _ in range(3)]
+    ms_b, ms_1 = float(np.median(times["batched"])), float(np.median(times["single"]))
+    print(f"five_point: vo_step_batched 5pt B={n_pairs} launches per call {launches_b}, no "
+          f"host sync, repeat equal; lanes vs ground truth max |R-R_gt|_F={r_max:.4g} "
+          f"dir_err={d_max:.4g}, median {r_med:.4g} / {d_med:.4g} (limits {lim_r:.4g} / "
+          f"{lim_d:.4g}, median {2 * FIVE_REF_MEDIAN[0]:.4g} / {2 * FIVE_REF_MEDIAN[1]:.4g}); "
+          f"{n_pairs / ms_b * 1e3:.2f} pairs/s (median {ms_b:.2f} ms per call over "
+          f"{len(times['batched'])}), single {1e3 / ms_1:.2f} pairs/s (median {ms_1:.2f} ms), "
+          f"in turns; max_memory_allocated {memb:.3f} GB at B={n_pairs}")
+    return dict(launches_per_step=per_step, step_ms=step_ms, stage=stage,
+                pose=[r_err, d_err], kernel_vs_plain=[kr, kd],
+                card_vs_cpu=card_vs_cpu,
+                batched=dict(pairs_s=n_pairs / ms_b * 1e3, single_pairs_s=1e3 / ms_1,
+                             ms_per_call=ms_b, lanes_max=[r_max, d_max],
+                             lanes_median=[r_med, d_med]),
+                max_memory_allocated_gb={"B1": mem1, f"B{n_pairs}": memb})
+
+
+def global_card_vs_cpu(seed: int, res, dev) -> dict:
+    """refine_global on ``dev`` against the port's CPU on a no-GT run's own
+    zetas and pairs, beside the CPU against itself with one ulp on the
+    input rotations, and a repeat on ``dev`` (GLOBAL_* above)."""
+    from epivo_tpu_torch.pipeline import runners
+    from epivo_tpu_torch.pipeline.config import GlobalBAConfig
+    from epivo_tpu_torch.tools import photoreal_ate
+
+    cfg = dataclasses.replace(photoreal_ate.configs()[1],
+                              global_ba=GlobalBAConfig(enabled=True))
+    zetas = res.per_frame["zetas"]
+    z_d, r_d = runners.refine_global(zetas, res.pair_data, cfg, device=dev)
+    z_2, r_2 = runners.refine_global(zetas, res.pair_data, cfg, device=dev)
+    t0 = time.perf_counter()
+    z_c, r_c = runners.refine_global(zetas, res.pair_data, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    z_u = zetas.copy()
+    z_u[:, :3, :3] = np.nextafter(z_u[:, :3, :3], np.float32(2.0))
+    z_cu, _ = runners.refine_global(z_u, res.pair_data, cfg, device="cpu")
+    per_zeta = lambda a, b: np.abs(a[:, :3, :3] - b[:, :3, :3]).max(axis=(1, 2))
+    dRz, ctrl = per_zeta(z_d, z_c), per_zeta(z_cu, z_c)
+    dR, dR95, ctrl_max = float(dRz.max()), float(np.quantile(dRz, 0.95)), float(ctrl.max())
+    dr = abs(float(r_d.r_norm) - float(r_c.r_norm)) / float(r_c.r_norm)
+    repeat = bool(np.array_equal(z_d, z_2) and float(r_d.r_norm) == float(r_2.r_norm))
+    print(f"global: card vs CPU on seed {seed}'s input: rotation difference per "
+          f"zeta 95th percentile {dR95:.3g} (limit {GLOBAL_R_TOL}), largest {dR:.3g} at zeta "
+          f"{int(dRz.argmax())} (limit {GLOBAL_R_MAX}; the CPU against itself with one ulp "
+          f"on the input rotations: "
+          f"{ctrl_max:.3g} at zeta {int(ctrl.argmax())}, 95th percentile "
+          f"{float(np.quantile(ctrl, 0.95)):.3g}), r_norm {float(r_d.r_norm):.6g} / "
+          f"{float(r_c.r_norm):.6g} ({100 * dr:.3f} %), accepted {int(r_d.n_accepted)} / "
+          f"{int(r_c.n_accepted)}; repeat on the card bit-equal: {repeat}; CPU {cpu_s:.2f} s")
+    _check(dR95 < GLOBAL_R_TOL and dR < GLOBAL_R_MAX and dr < GLOBAL_RNORM_RTOL,
+           f"global card vs CPU: rotations {dR95:.3g} (95th percentile) / {dR:.3g} (largest; "
+           f"one-ulp control {ctrl_max:.3g}), r_norm {dr:.3g}")
+    _check(repeat, "global: a repeat on the card changed the result")
+    return dict(rot_p95=dR95, rot_max=dR, rot_max_ulp_control=ctrl_max, r_norm_rel=dr,
+                repeat_equal=repeat, cpu_s=cpu_s)
+
+
+def phase_global(results: list, gt, length: float, dev) -> dict:
+    """The global-BA polish on each of phase 9's no-GT runs, over the run's
+    own zetas and pairs (tools/photoreal_ate.global_paired): the paired
+    Sim(3) ATE delta and length ratio, kept step norms, accepted steps,
+    the residual norm before and after and the stage's wall seconds; the
+    median delta against the JAX package's CPU spread; the card against
+    the port's CPU on seed 0's input, and a bit-equal repeat."""
+    from epivo_tpu_torch.tools import photoreal_ate
+
+    runs = []
+    for seed, res in results:
+        g = photoreal_ate.global_paired(res, gt, length, device=dev)
+        runs.append(g)
+        print(f"global: seed {seed}: Sim(3) ATE {g['off']['ate_sim3_pct_of_length']:.3f} -> "
+              f"{g['on']['ate_sim3_pct_of_length']:.3f} % (delta {g['delta_pp']:+.3f} pp), "
+              f"length ratio {g['off']['length_ratio_gauge0']:.4f} -> "
+              f"{g['on']['length_ratio_gauge0']:.4f}; step norms kept to "
+              f"{g['norm_rel_change_max']:.2g}; {g['n_accepted']} steps accepted, r_norm "
+              f"{g['r_norm_start']:.6g} -> {g['r_norm_end']:.6g}; stage {g['wall_s']:.2f} s")
+        _check(g["norm_rel_change_max"] <= GLOBAL_NORM_RTOL,
+               f"global seed {seed}: step norms moved by {g['norm_rel_change_max']:.3g}")
+        _check(g["n_accepted"] > 0 and g["r_norm_end"] <= g["r_norm_start"],
+               f"global seed {seed}: {g['n_accepted']} accepted, r_norm "
+               f"{g['r_norm_start']} -> {g['r_norm_end']}")
+    med = float(np.median([g["delta_pp"] for g in runs]))
+    print(f"global: median paired delta over seeds {list(SEQ_SEEDS)} {med:+.3f} pp (limits "
+          f"[{GLOBAL_DELTA[0]:+.3f}, {GLOBAL_DELTA[1]:+.3f}], 1.5x the reference's CPU "
+          f"extremes {GLOBAL_REF_DELTA})")
+    _check(GLOBAL_DELTA[0] <= med <= GLOBAL_DELTA[1],
+           f"global median paired delta {med:+.3f} pp outside {GLOBAL_DELTA}")
+    return dict(runs=runs, median_delta_pp=med,
+                card_vs_cpu=global_card_vs_cpu(results[0][0], results[0][1], dev))
+
+
 KERNELS = {
     "fast": ("epivo_tpu_torch/csrc/fast.cu",
              "epivo_tpu/frontend/pallas_fast.py:33"),
@@ -2017,7 +2323,7 @@ def main() -> int:
     orb = phase_orb(f0, f1, gt, cfg)
     report["extract"]["orb"] = orb["extract"]
     report["fast"]["orb_pyramid"] = orb.pop("fast_dense")
-    sequence, seq_kernels = phase_sequence(dev)
+    sequence, seq_kernels, seq_runs = phase_sequence(dev)
     for k, rows in seq_kernels.items():
         report[k]["sequence"] = rows
     stereo, stereo_kernels = phase_stereo(dev)
@@ -2026,9 +2332,13 @@ def main() -> int:
     loop, loop_kernels = phase_loop(dev)
     for k, rows in loop_kernels.items():
         report[k]["loop"] = rows
+    five = phase_five_point(f0, f1, gt, cfg)
+    seq_gt, seq_length, seq_results = seq_runs
+    glob = phase_global(seq_results, seq_gt, seq_length, dev)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"batched": batched, "ba": ba_report, "orb": orb,
-                      "sequence": sequence, "stereo": stereo, "loop": loop}))
+                      "sequence": sequence, "stereo": stereo, "loop": loop,
+                      "five_point": five, "global": glob}))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "launches_per_orb_step": orb["launches_per_step"][k],
@@ -2036,7 +2346,8 @@ def main() -> int:
          "launches_sequence": sequence["launches"][k],
          "launches_stereo": stereo["launches"][0][k], "launches_loop": loop["launches"][k],
          "launches_loop_stage": loop["launches_stage"][k],
-         "launches_per_loop_call": loop["launches_per_call"][k], **report[k]}
+         "launches_per_loop_call": loop["launches_per_call"][k],
+         "launches_per_five_point_step": five["launches_per_step"][k], **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -64,12 +64,14 @@ def config_from_reference(obj) -> VOConfig | BAConfig:
 
 
 def ransac_samples_from_reference(idx_np, device=None) -> torch.Tensor:
-    """The reference's sample indices [n_hyp, 8], or [B, n_hyp, 8] for B
+    """The reference's sample indices [n_hyp, m], or [B, n_hyp, m] for B
     pairs (a numpy array, e.g. from ``epivo_tpu.ransac._sample_indices``),
     as the LongTensor that ``ransac_essential``, ``vo_step`` and
-    ``vo_step_batched`` accept."""
+    ``vo_step_batched`` accept. m is the solver's sample size: 8, or 5
+    for ``solver="5pt"``."""
     idx = np.asarray(idx_np)
-    if idx.ndim not in (2, 3) or not np.issubdtype(idx.dtype, np.integer):
-        raise ValueError(f"expected an integer [n_hyp, 8] or [B, n_hyp, 8] "
-                         f"array, got {idx.dtype} {idx.shape}")
+    if (idx.ndim not in (2, 3) or idx.shape[-1] not in (5, 8)
+            or not np.issubdtype(idx.dtype, np.integer)):
+        raise ValueError(f"expected an integer [n_hyp, m] or [B, n_hyp, m] "
+                         f"array with m = 8 or 5, got {idx.dtype} {idx.shape}")
     return torch.as_tensor(idx.astype(np.int64), device=device)

@@ -4,9 +4,8 @@
 Field names and defaults match the reference, so
 :func:`epivo_tpu_torch.convert.config_from_reference` can copy them one by
 one. ``BAConfig`` nests ``ScaleConfig`` (read by the scale graph and the
-mono chain), ``GlobalBAConfig`` and ``LoopConfig`` (read by the loop
-stage). The global-BA stage is not ported yet (the runners refuse it when
-enabled); its fields are carried so that configs convert field for field.
+mono chain), ``GlobalBAConfig`` (read by the global-BA polish of
+``run_ba_sequence``) and ``LoopConfig`` (read by the loop stage).
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ class RansacConfig:
     outlier_ratio: float = 0.5
     threshold_px: float = 1.0  # pixel threshold; normalized by fx at use
     method: str = "ransac"  # or "lmeds"
-    solver: str = "8pt"  # "5pt" is not ported yet
+    solver: str = "8pt"  # or "5pt" (geometry/fivepoint.py)
     # Gauss-Newton refinement of E on its 5-DoF manifold after RANSAC.
     refine_e: bool = True
     refine_iters: int = 8
@@ -123,7 +122,8 @@ class ScaleConfig:
 @dataclasses.dataclass(frozen=True)
 class GlobalBAConfig:
     """Global full-trajectory BA polish over the windowed result
-    (``parallel/global_ba.py`` in the reference; not ported yet)."""
+    (:func:`epivo_tpu_torch.pipeline.runners.refine_global` on
+    :mod:`epivo_tpu_torch.parallel.global_ba`)."""
 
     enabled: bool = False
     max_iters: int = 20

@@ -33,7 +33,8 @@ SE(3) algebra of the drift spread, the shortlist and every gate run on the
 host in float64, as in the reference. Random draws come from a
 ``torch.Generator`` on the device, seeded from ``seed + 7777``
 (:func:`close_loops`) or ``seed + 3333`` (:func:`relocalize`); the
-verifiers take ``ransac_samples`` [2, n_hyp, 8] to replace them.
+verifiers take ``ransac_samples`` [2, n_hyp, m] (m the solver's sample
+size) to replace them.
 """
 
 from __future__ import annotations
@@ -273,7 +274,7 @@ def verify_loop(img_i: np.ndarray, img_j: np.ndarray,
     triangulations give |t_loop| / |t_{i,i+1}| as a depth-ratio median
     (the no-GT chain's shared-structure scheme), and ``t_next_norm`` (the
     trajectory's step norm) converts it to chain units. ``generator``
-    draws both lanes' RANSAC samples; ``ransac_samples`` [2, n_hyp, 8]
+    draws both lanes' RANSAC samples; ``ransac_samples`` [2, n_hyp, m]
     replaces that draw.
 
     The parallax-degenerate t=0 branch (almost no loop inlier

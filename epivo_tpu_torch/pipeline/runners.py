@@ -8,10 +8,12 @@ the trajectory; ``run_stereo_ba_sequence`` does the same on a stereo rig
 in a doubled frame index, with the metric scale of every step taken from
 the calibrated baseline (no ground truth needed);
 ``run_gt_triangulation_sequence`` triangulates the extracted matches
-against the ground-truth motion. With ``config.loop.enabled`` both BA
-runners keep half-resolution keyframes off their frame stream and close
-loops on the finished trajectory (:func:`_loop_stage`,
-:mod:`loopclose`).
+against the ground-truth motion. With ``config.global_ba.enabled``
+``run_ba_sequence`` polishes the windowed result with one joint LM over
+the whole chain (:func:`refine_global`, :mod:`parallel.global_ba`). With
+``config.loop.enabled`` both BA runners keep half-resolution keyframes
+off their frame stream and close loops on the finished trajectory
+(:func:`_loop_stage`, :mod:`loopclose`).
 
 Host/device split: frame decode and GT stay on the host; frames go to the
 device in batches, and each batch of pairs is one batched step
@@ -25,8 +27,7 @@ Each runner works on ``device`` (default: the CUDA card; it raises when
 there is none, see :func:`_device.runner_device`) and draws its RANSAC
 samples from one ``torch.Generator`` seeded from ``seed``. Not ported
 yet, and refused with ``NotImplementedError`` rather than dropped: the
-multi-device ``mesh`` (ROADMAP A14) and the global-BA polish
-(``config.global_ba.enabled``, A14).
+multi-device ``mesh`` (ROADMAP A14b).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 from epivo_tpu_torch._device import constant, runner_device, upload as _upload
 from epivo_tpu_torch.eval import metrics
 from epivo_tpu_torch.geometry import camera as cam, epipolar, se3
+from epivo_tpu_torch.parallel import global_ba as gba
 from epivo_tpu_torch.pipeline import ba as ba_mod, scale as scale_mod, stream, vo
 from epivo_tpu_torch.pipeline.config import (BAConfig, ScaleConfig, VOConfig,
                                              underfill_floor)
@@ -60,16 +62,11 @@ class SequenceResult(NamedTuple):
     pair_data: dict | None = None  # run_ba_sequence: the extracted pairs
 
 
-def _refuse(mesh, config: BAConfig | None = None, global_ba: bool = True) -> None:
-    """Raise on the options whose stages are not ported yet (``global_ba``:
-    whether the runner has a global-BA stage to refuse)."""
+def _refuse(mesh) -> None:
+    """Raise on the option whose layer is not ported yet: a device mesh."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: the multi-device layer is not ported yet (ROADMAP A14)")
-    if global_ba and config is not None and config.global_ba.enabled:
-        raise NotImplementedError(
-            "config.global_ba.enabled: the global-BA polish is not ported "
-            "yet (ROADMAP A14)")
+            "mesh: the multi-device layer is not ported yet (ROADMAP A14b)")
 
 
 def _batched_vo(config: VOConfig, collect_cloud: bool = True):
@@ -276,7 +273,7 @@ def run_vo_sequence(
 
 def _extract_step(vo_cfg: VOConfig, use_orb: bool):
     """The batch step of :func:`_extract_pairs`: (src, tgt [B, H, W] on the
-    device, generator, optional samples [B, n_hyp, 8]) -> one packed
+    device, generator, optional samples [B, n_hyp, m]) -> one packed
     [B, 16 + 8K + 2] tensor: pose, normalized source and target points,
     the LM-ready and the epipolar-inlier masks, n_inliers and reverted."""
     step_fn = vo.vo_step_orb_batched if use_orb else vo.vo_step_batched
@@ -355,10 +352,11 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
     re-associated by ORB descriptor matching, and the ORB result replaces
     the KLT one when it did not revert and has more inliers.
 
-    ``ransac_samples`` / ``orb_samples`` ({(i, j): LongTensor [n_hyp, 8]})
-    replace the generator's draws of the KLT and the ORB pass, for parity
-    runs. ``stats`` (a dict) receives the pair, retry and replace counts,
-    the retried pairs and the passes' host wall seconds.
+    ``ransac_samples`` / ``orb_samples`` ({(i, j): LongTensor [n_hyp, m]},
+    m the solver's sample size: 8, or 5 with ``solver="5pt"``) replace the
+    generator's draws of the KLT and the ORB pass, for parity runs.
+    ``stats`` (a dict) receives the pair, retry and replace counts, the
+    retried pairs and the passes' host wall seconds.
 
     Returns {(i, j): {p, p_t, mask (top-n_points score-ranked), T,
     p_full, p_t_full, mask_full, n_inl, rev}} with points in normalized
@@ -830,15 +828,20 @@ def run_ba_sequence(
     extraction stats and per-window LM health as JSONL. The result's
     ``stats`` holds the pair, retry, replace, measurement and window
     counts and the host wall seconds of each stage, its ``pair_data`` the
-    extracted pairs (see :func:`_extract_pairs`).
+    extracted pairs (see :func:`_extract_pairs`), its
+    ``per_frame["zetas"]`` the scaled relative poses [F-1, 4, 4] the
+    trajectory is chained from (before the loop stage).
 
-    With ``config.loop.enabled`` a keyframe tee on the frame stream keeps
+    With ``config.global_ba.enabled`` the scaled zetas go through
+    :func:`refine_global` before the trajectory is chained
+    (``stats["global_ba_s"]`` holds its wall seconds). With
+    ``config.loop.enabled`` a keyframe tee on the frame stream keeps
     every ``keyframe_stride``-th frame and its successor at half
     resolution, and the loop stage (:func:`_loop_stage`) corrects the
     finished trajectory; the result's ``loops`` holds the applied loops
     and ``stats["loop"]`` the stage's counts and wall seconds.
     """
-    _refuse(mesh, config)
+    _refuse(mesh)
     t_start = time.perf_counter()
     mlog = profiling.MetricsLogger(metrics_path)
     ckpt = (ckpt_mod.SequenceCheckpointer(checkpoint_dir, every=checkpoint_every)
@@ -875,6 +878,14 @@ def run_ba_sequence(
         norms = np.linalg.norm(t, axis=-1, keepdims=True)
         norms = np.where(norms > 1e-12, norms, 1.0)
         zetas[:, :3, 3] = (t / norms) * win.c_scale[: zetas.shape[0], None]
+    if config.global_ba.enabled:
+        # Global full-trajectory polish over the complete constraint graph
+        # (consecutive + skip pairs): the cross-window drift the
+        # independent windows cannot see.
+        t0 = time.perf_counter()
+        zetas, _ = refine_global(zetas, win.pair_data, config, mlog=mlog, device=device)
+        stats["global_ba_s"] = time.perf_counter() - t0
+        mlog.log({"stage": "global_ba_wall", "wall_s": round(stats["global_ba_s"], 2)})
     traj = ba_mod.trajectory_from_zetas(torch.from_numpy(
         np.ascontiguousarray(zetas, np.float32))).numpy()
     traj, loops = _close_loops(traj, kf_store, config, seed, mlog, device, stats)
@@ -900,11 +911,79 @@ def run_ba_sequence(
         per_frame={
             "window_r_norm": np.asarray(out.r_norm),
             "window_reverted": np.asarray(out.reverted),
+            "zetas": zetas,
         },
         loops=loops,
         stats=stats,
         pair_data=win.pair_data,
     )
+
+
+def refine_global(zetas: np.ndarray, pair_data: dict, config: BAConfig,
+                  mesh=None, mlog=None, device=None):
+    """Global (full-trajectory) BA polish of the windowed result.
+
+    Builds the complete constraint graph from the extracted pairs
+    (consecutive pairs -> span (i, i); skip pairs -> span (i, i+1)) and
+    runs ONE joint LM over the whole zeta chain with the matrix-free PCG
+    solver (:func:`parallel.global_ba.global_ba_solve`) on ``device``
+    (default: the CUDA card). Constraints with fewer valid matches than
+    :func:`underfill_floor` of the point budget get zero weight, as in the
+    windowed path (ref `kitti_ba.cpp:821-826`). ``mesh`` is refused
+    (ROADMAP A14b).
+
+    With ``config.global_ba.keep_norms`` the joint solve contributes
+    rotations and translation *directions* only; per-zeta |t| is kept
+    from the input chain (GT scales or the no-GT scale graph). ``mlog``
+    receives one ``global_ba`` health line.
+
+    Returns (refined zetas [Z, 4, 4] float32, GlobalBAResult on the host,
+    or None when no pair gives a constraint).
+    """
+    _refuse(mesh)
+    dev = runner_device(device)
+    Z = zetas.shape[0]
+    gcfg = config.global_ba
+    N = config.lm.n_points
+    reps, rows = [], []
+    for (i, j) in sorted(pair_data):
+        if not (0 <= i < Z and i < j <= Z):
+            continue  # backward pairs are mirrors of forward ones
+        if j == i + 1:
+            reps.append((i, i))
+        elif j == i + 2 and i + 1 < Z:
+            reps.append((i, i + 1))
+        else:
+            continue
+        rows.append(pair_data[(i, j)])
+    if not reps:
+        return zetas.astype(np.float32), None
+    up = lambda a: _upload(np.asarray(a), dev)
+    p = np.stack([d["p"] for d in rows]).astype(np.float32)
+    p_t = np.stack([d["p_t"] for d in rows]).astype(np.float32)
+    pmask = np.stack([d["mask"] for d in rows])
+    wreps = np.asarray(
+        [1.0 if d["mask"].sum() >= underfill_floor(N) else 0.0 for d in rows], np.float32)
+    res = gba.global_ba_solve(
+        up(zetas.astype(np.float32)), np.asarray(reps, np.int32), up(p), up(p_t),
+        wreps=up(wreps), pmask=up(pmask), max_span=2, lambda0=config.lm.lambda0,
+        max_iters=gcfg.max_iters, cg_iters=gcfg.cg_iters,
+        huber_delta=config.lm.huber_delta)
+    # One device-to-host copy: poses, r_norm, n_accepted, lambda.
+    h = torch.cat([res.T0s.reshape(-1), torch.stack([
+        res.r_norm, res.n_accepted.to(res.r_norm.dtype), res.lam])]).cpu()
+    res = gba.GlobalBAResult(T0s=h[:-3].reshape(Z, 4, 4), r_norm=h[-3],
+                             n_accepted=h[-2].to(torch.int32), lam=h[-1])
+    z = res.T0s.numpy().astype(np.float64)
+    if gcfg.keep_norms:
+        n_old = np.linalg.norm(zetas[:, :3, 3], axis=-1, keepdims=True)
+        n_new = np.linalg.norm(z[:, :3, 3], axis=-1, keepdims=True)
+        z[:, :3, 3] = z[:, :3, 3] / np.where(n_new > 1e-12, n_new, 1.0) * n_old
+    if mlog is not None:
+        mlog.log({"stage": "global_ba", "r_norm": float(res.r_norm),
+                  "n_accepted": int(res.n_accepted),
+                  "n_constraints": int((wreps > 0).sum())})
+    return z.astype(np.float32), res
 
 
 class StereoScales(NamedTuple):
@@ -1162,10 +1241,10 @@ def run_stereo_ba_sequence(
     the extracted pairs. With ``config.loop.enabled`` the keyframe tee
     takes the LEFT frames, indexed by frame k (not the doubled index): the
     trajectory the loop stage corrects is the per-frame left-camera chain
-    (see :func:`run_ba_sequence`). Refused: ``mesh`` (A14); the stereo
-    runner has no global-BA stage.
+    (see :func:`run_ba_sequence`). Refused: ``mesh`` (A14b). The stereo
+    runner has no global-BA stage, as in the reference.
     """
-    _refuse(mesh, config, global_ba=False)
+    _refuse(mesh)
     t_start = time.perf_counter()
     mlog = profiling.MetricsLogger(metrics_path)
     if n_frames is None:

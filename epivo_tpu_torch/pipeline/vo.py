@@ -149,7 +149,9 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
     for all B pairs, per-pair RANSAC winners, refine-E and one batched LM
     (W = B windows of one pose and one constraint), with no host sync.
     ``generator`` draws every pair's RANSAC samples in one draw;
-    ``ransac_samples`` (a LongTensor [B, n_hyp, 8]) replaces that draw.
+    ``ransac_samples`` (a LongTensor [B, n_hyp, m], m the solver's sample
+    size: 8, or 5 with ``config.ransac.solver == "5pt"``) replaces that
+    draw.
     ``use_kernel=None`` runs the CUDA kernels for CUDA images and the plain
     versions for CPU images. Every field of the result has a leading [B].
     """
@@ -233,7 +235,7 @@ def vo_step(img0: torch.Tensor, img1: torch.Tensor,
     img0/img1: [H, W] float32 grayscale.
 
     ``generator`` draws the RANSAC samples; ``ransac_samples`` (a LongTensor
-    [n_hyp, 8]) replaces that draw. ``use_kernel=None`` runs the CUDA
+    [n_hyp, m], m = 8, or 5 with the 5-point solver) replaces that draw. ``use_kernel=None`` runs the CUDA
     kernels for CUDA images and the plain versions for CPU images.
     """
     out = vo_step_batched(img0[None], img1[None], generator, config,
@@ -247,7 +249,8 @@ def vo_step_orb(img0: torch.Tensor, img1: torch.Tensor,
                 ransac_samples: torch.Tensor | None = None,
                 use_kernel: bool | None = None) -> VOStepResult:
     """One two-view step with ORB matching: :func:`vo_step_orb_batched`
-    with B = 1. img0/img1: [H, W] float32; ``ransac_samples`` [n_hyp, 8]."""
+    with B = 1. img0/img1: [H, W] float32; ``ransac_samples`` [n_hyp, m]
+    as in :func:`vo_step`."""
     out = vo_step_orb_batched(img0[None], img1[None], generator, config,
                               None if ransac_samples is None else ransac_samples[None],
                               use_kernel)

@@ -2,9 +2,10 @@
 ``epivo_tpu/ransac.py``).
 
 ``n_hyp`` minimal samples are drawn at once, solved with one batched
-8-point solve, scored against all N matches, and reduced with an argmax.
-Both the match count N (padded, with ``mask``) and the hypothesis count
-are static.
+8-point solve (or one batched 5-point solve, ``geometry/fivepoint.py``,
+up to 10 candidates per sample), scored against all N matches, and
+reduced with an argmax. Both the match count N (padded, with ``mask``)
+and the hypothesis count are static.
 
 The reference draws its samples with ``jax.random.gumbel``, which torch
 cannot reproduce. ``ransac_essential`` therefore takes the sample indices
@@ -19,9 +20,10 @@ from typing import NamedTuple
 
 import torch
 
-from epivo_tpu_torch.geometry import essential
+from epivo_tpu_torch.geometry import essential, fivepoint
 
 MIN_SAMPLE = 8  # 8-point minimal sample
+SAMPLE_SIZE = {"8pt": MIN_SAMPLE, "5pt": 5}  # sample size per solver
 
 
 class RansacResult(NamedTuple):
@@ -94,20 +96,20 @@ def ransac_essential(
       mask: [N] (or [B, N]) validity of the padded matches.
       method: "ransac" (inlier count) or "lmeds" (least median of squares).
       refit: refit E on the winning inlier set (guarded weighted 8-point).
-      solver: "8pt" only; the 5-point solver is not ported yet.
-      samples: optional LongTensor [n_hyp, 8] (or [B, n_hyp, 8]) of match
+      solver: "8pt" (projected 8-point minimal sample) or "5pt" (the
+        Nister/Stewenius minimal solver, :func:`fivepoint.five_point`: each
+        5-point sample yields up to 10 candidate E, all scored; it needs
+        only 5 inliers per sample, which wins at high outlier ratios).
+      samples: optional LongTensor [n_hyp, m] (or [B, n_hyp, m]) of match
         indices that replaces the random draw (how the tests feed the
-        reference's samples in).
+        reference's samples in); m is the solver's sample size
+        (``SAMPLE_SIZE``: 8 or 5).
 
-    Every lane picks its own winner (first maximum on ties), its own LMedS
-    median and its own guarded refit, with no host sync.
+    Every lane picks its own winner (first maximum over all candidates on
+    ties), its own LMedS median and its own guarded refit, with no host
+    sync.
     """
-    if solver == "5pt":
-        raise NotImplementedError(
-            "solver='5pt' is not ported yet (ROADMAP.md, queue A item 11: "
-            "the 5-point solver, geometry/fivepoint.py)"
-        )
-    if solver != "8pt":
+    if solver not in SAMPLE_SIZE:
         raise ValueError(f"unknown solver {solver!r}")
     if method not in ("ransac", "lmeds"):
         raise ValueError(f"unknown method {method!r}")
@@ -123,30 +125,40 @@ def ransac_essential(
                                                      device=p.device)
     n_valid = torch.sum(valid, dim=-1)  # [B]
 
+    m = SAMPLE_SIZE[solver]
     if samples is None:
         if generator is None:
             raise ValueError("ransac_essential needs a generator or samples")
-        idx = _sample_indices(generator, n_hyp, N, mask, device=p.device, lead=(B,))
+        idx = _sample_indices(generator, n_hyp, N, mask, m, device=p.device, lead=(B,))
     else:
         idx = samples.to(device=p.device, dtype=torch.int64)
-        if idx.shape != (B, n_hyp, MIN_SAMPLE):
-            raise ValueError(f"samples must be [{B}, {n_hyp}, {MIN_SAMPLE}], "
+        if idx.shape != (B, n_hyp, m):
+            raise ValueError(f"samples must be [{B}, {n_hyp}, {m}], "
                              f"got {tuple(idx.shape)}")
     lane = torch.arange(B, device=p.device)
-    # Hypotheses are projected to the essential manifold (regularizes
-    # near-degenerate minimal samples).
-    Es = essential.eight_point(p[lane[:, None, None], idx], p_t[lane[:, None, None], idx],
-                               project=True)  # [B, H, 3, 3]
+    p_s, p_ts = p[lane[:, None, None], idx], p_t[lane[:, None, None], idx]
+    if solver == "5pt":
+        Es_c, hyp_ok = fivepoint.five_point(p_s.reshape(B * n_hyp, m, 3),
+                                            p_ts.reshape(B * n_hyp, m, 3))
+        Es = Es_c.reshape(B, n_hyp * 10, 3, 3)  # [B, H, 3, 3], H = n_hyp * 10
+        hyp_ok = hyp_ok.reshape(B, n_hyp * 10)
+    else:
+        # Hypotheses are projected to the essential manifold (regularizes
+        # near-degenerate minimal samples).
+        Es = essential.eight_point(p_s, p_ts, project=True)  # [B, H, 3, 3]
+        hyp_ok = None
+    H = Es.shape[1]
 
     err = essential.sampson_error(Es, p[:, None], p_t[:, None])  # [B, H, N]
-    err = torch.where(valid[:, None, :], err, torch.inf)
+    ok = valid[:, None, :] if hyp_ok is None else valid[:, None, :] & hyp_ok[..., None]
+    err = torch.where(ok, err, torch.inf)
 
     if method == "lmeds":
         # Median over each lane's valid entries: sort and take the entry at
         # that lane's n_valid // 2.
         err_sorted = torch.sort(err, dim=-1).values
         mid = torch.clamp(n_valid // 2, 0, N - 1)
-        med = torch.gather(err_sorted, -1, mid[:, None, None].expand(B, n_hyp, 1))[..., 0]
+        med = torch.gather(err_sorted, -1, mid[:, None, None].expand(B, H, 1))[..., 0]
         score = -med  # [B, H]
         best = torch.argmax(score, dim=-1)  # [B]
         best_med = med[lane, best]

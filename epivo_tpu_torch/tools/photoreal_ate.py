@@ -14,7 +14,15 @@ two-view step and 32 for the BA windows (revert above 1e-2), batches of
   (:func:`pair_accuracy`), which, unlike the trajectory, does not
   compound one pair's error into the scales after it;
 - with ``--vo``, also two-view VO with the ground truth's step lengths
-  injected (``run_vo_sequence``): SE(3)-aligned ATE.
+  injected (``run_vo_sequence``): SE(3)-aligned ATE;
+- with ``--global-ba``, also the global-BA polish (``runners.refine_global``,
+  the stage ``run_ba_sequence`` runs with ``GlobalBAConfig(enabled=True)``)
+  on that run's own zetas and pairs (:func:`global_paired`): the paired
+  Sim(3) ATE delta (on - off), the length ratios, the kept step norms,
+  the solver's accepted steps and residual norm before and after, and
+  the stage's wall seconds (the counterpart of
+  ``scripts/run_photoreal_ate.py --global-seeds``, which reruns the whole
+  sequence with the polish on).
 
 Frames are rendered once (in ``--workers`` processes, bit-equal to the
 sequential generator) and kept in float32 on the host. Prints one JSON
@@ -23,7 +31,8 @@ pairs to ``DIR/pairs_seed<s>.npz`` (the runners' checkpoint packing),
 which ``python -m tests.reference_accuracy back-half`` feeds to both
 packages' windowed BA; otherwise it writes nothing.
 
-    python -m epivo_tpu_torch.tools.photoreal_ate --seeds 0,1,2 [--vo] [--save-pairs DIR]
+    python -m epivo_tpu_torch.tools.photoreal_ate --seeds 0,1,2 [--vo] [--global-ba]
+        [--save-pairs DIR]
 """
 
 from __future__ import annotations
@@ -181,6 +190,41 @@ def ba_no_gt(frames, gt, length, seed=0, batch=32, pipeline_depth=2, device=None
             "stats": res.stats}, res
 
 
+def global_paired(res, gt, length, device=None) -> dict:
+    """The global-BA polish on a no-GT run's own scaled zetas and pairs
+    (``res``: a :func:`ba_no_gt` result with the polish off), as
+    ``run_ba_sequence`` runs it with ``GlobalBAConfig(enabled=True)``.
+    Returns the off (the run) and on scores of :func:`score_no_gt`, the
+    paired delta (on - off, percentage points of the length), the largest
+    relative change of a step norm, the solver's accepted steps, its
+    residual norm at the start and the end, and the stage's wall seconds
+    (synchronised on the device)."""
+    import dataclasses
+
+    import torch
+
+    from epivo_tpu_torch.pipeline import ba, runners
+    from epivo_tpu_torch.pipeline.config import GlobalBAConfig
+
+    zetas = res.per_frame["zetas"]
+    cfg = dataclasses.replace(configs()[1], global_ba=GlobalBAConfig(enabled=True))
+    start = dataclasses.replace(cfg, global_ba=GlobalBAConfig(enabled=True, max_iters=0))
+    _, r0 = runners.refine_global(zetas, res.pair_data, start, device=device)
+    t0 = time.perf_counter()
+    z, r1 = runners.refine_global(zetas, res.pair_data, cfg, device=device)
+    wall = time.perf_counter() - t0
+    traj = ba.trajectory_from_zetas(torch.from_numpy(z)).numpy()
+    off = score_no_gt(res.trajectory, gt, length)
+    on = score_no_gt(traj, gt, length)
+    n0 = np.linalg.norm(zetas[:, :3, 3], axis=-1)
+    n1 = np.linalg.norm(z[:, :3, 3], axis=-1)
+    return {"off": off, "on": on,
+            "delta_pp": on["ate_sim3_pct_of_length"] - off["ate_sim3_pct_of_length"],
+            "norm_rel_change_max": float(np.max(np.abs(n1 / n0 - 1.0))),
+            "n_accepted": int(r1.n_accepted), "r_norm_start": float(r0.r_norm),
+            "r_norm_end": float(r1.r_norm), "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", default="0", help="comma list of RANSAC seeds")
@@ -189,6 +233,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workers", type=int, default=8, help="render processes")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--vo", action="store_true", help="also VO with the GT scale")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="also the global-BA polish on each run's zetas and pairs")
     ap.add_argument("--save-pairs", default=None, metavar="DIR",
                     help="write each seed's extracted pairs to DIR/pairs_seed<s>.npz")
     args = ap.parse_args(argv)
@@ -210,6 +256,8 @@ def main(argv=None) -> int:
     runs = []
     for s in args.seeds.split(","):
         run, res = ba_no_gt(frames, gt, length, int(s), args.batch, device=args.device)
+        if args.global_ba:
+            run["global_ba"] = global_paired(res, gt, length, device=args.device)
         runs.append(run)
         if args.save_pairs:
             os.makedirs(args.save_pairs, exist_ok=True)
@@ -218,6 +266,8 @@ def main(argv=None) -> int:
     out["ba_no_gt"] = runs
     vals = [r["ate_sim3_pct_of_length"] for r in runs]
     out["ba_no_gt_seed_spread_pct"] = [min(vals), max(vals)]
+    if args.global_ba:
+        out["global_ba_paired_delta_pp"] = [r["global_ba"]["delta_pp"] for r in runs]
     print(json.dumps(out))
     return 0
 

@@ -1,11 +1,15 @@
 """The JAX package's accuracy, on the CPU, where ``chip_smoke.py`` holds
-the port to it. Three commands, each printing JSON lines and writing
-nothing:
+the port to it. Its commands print JSON lines and write nothing but the
+pair files ``--save-pairs`` asks for:
 
 - ``orb-pose``: ``vo_step_orb`` on the corridor pair of ``chip_smoke.py``
   (``corridor_sequence(2, H=376, W=1241, seed=0)``, the bench
   configuration), single scale and on the 8-level pyramid, at each RANSAC
   seed: |R - R_gt|_F and the translation-direction error;
+- ``five-point``: ``vo_step`` with the 5-point solver
+  (``RansacConfig(solver="5pt")``) on the same pair and configuration, at
+  each RANSAC seed, the same errors; jitted, or with ``--eager`` under
+  ``jax.disable_jit()`` (each line says which);
 - ``turn``: ``_extract_pairs`` on the turn pair of
   ``tests/test_runners_datasets.py``'s slow fallback test
   (``loop_trajectory`` frames 80 -> 81, 188x1241) with the ORB retry off
@@ -26,6 +30,10 @@ nothing:
   extraction: Sim(3) ATE and length ratio per file and package, so a
   trajectory gap between the packages can be put on the pairs or on what
   follows them. Seconds per file;
+- ``global``: the same back half with the global-BA polish
+  (``GlobalBAConfig(enabled=True)``) off and then on, on each file's
+  pairs, in both packages: the paired Sim(3) ATE delta (on - off) and
+  length ratios;
 - ``stereo``: ``run_stereo_ba_sequence`` on the photoreal stereo corridor
   (``corridor_stereo_sequence(--frames, seed=3)``) at the configuration
   of ``scripts/run_photoreal_stereo.py`` and a batch of 8 pairs, in the
@@ -41,6 +49,8 @@ nothing:
     python -m tests.reference_accuracy turn --seeds 0-9
     python -m tests.reference_accuracy sequence --seeds 0,1,2 [--save-pairs DIR]
     python -m tests.reference_accuracy back-half --pairs DIR/pairs_seed0.npz ...
+    python -m tests.reference_accuracy five-point --seeds 0-43 [--eager]
+    python -m tests.reference_accuracy global --pairs DIR/pairs_seed0.npz ...
 - ``loop``: loop closure on the photoreal loop courses, in the form of
   the port's ``tools/photoreal_loop.py`` (the same frames, rendered by
   the port's renderer, configuration and scoring): for each ``--course``
@@ -73,13 +83,15 @@ def _seeds(text: str) -> list:
     return [int(s) for s in text.split(",")]
 
 
-def orb_pose(seeds) -> None:
-    import jax
+def corridor_pair():
+    """The corridor pair of ``chip_smoke.py`` at the bench configuration:
+    (f0, f1 as jnp arrays, the reference's VOConfig, the ground-truth
+    relative pose source -> target)."""
     import jax.numpy as jnp
 
     from epivo_tpu.datasets import photoreal
     from epivo_tpu.geometry.camera import Pinhole
-    from epivo_tpu.pipeline import config as jc, vo
+    from epivo_tpu.pipeline import config as jc
 
     H, W = 376, 1241
     frames, gt, _ = photoreal.corridor_sequence(2, H=H, W=W, seed=0)
@@ -89,19 +101,52 @@ def orb_pose(seeds) -> None:
         frontend=jc.FrontendConfig(fast_threshold=40.0, max_keypoints=512, klt_window=21,
                                    klt_levels=4, klt_iters=12),
         ransac=jc.RansacConfig(n_hyp=512, refine_e=True), lm=jc.LMConfig(n_points=48))
-    T_gt = np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
+    return f0, f1, cfg, np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
+
+
+def _pose_row(T, T_gt) -> dict:
+    T = np.asarray(T, np.float64)
     d_gt = T_gt[:3, 3] / np.linalg.norm(T_gt[:3, 3])
+    return {"rot": float(np.linalg.norm(T[:3, :3] - T_gt[:3, :3])),
+            "dir": float(np.linalg.norm(T[:3, 3] / np.linalg.norm(T[:3, 3]) - d_gt))}
+
+
+def orb_pose(seeds) -> None:
+    import jax
+
+    from epivo_tpu.pipeline import vo
+
+    f0, f1, cfg, T_gt = corridor_pair()
     for pyramid in (False, True):
         c = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
                                                                   orb_pyramid=pyramid))
         for seed in seeds:
             r = vo.vo_step_orb(f0, f1, jax.random.PRNGKey(seed), c)
-            T = np.asarray(r.T, np.float64)
-            print(json.dumps({"pyramid": pyramid, "seed": seed,
-                              "rot": float(np.linalg.norm(T[:3, :3] - T_gt[:3, :3])),
-                              "dir": float(np.linalg.norm(T[:3, 3] / np.linalg.norm(T[:3, 3])
-                                                          - d_gt)),
+            print(json.dumps({"pyramid": pyramid, "seed": seed, **_pose_row(r.T, T_gt),
                               "matches": int(r.n_tracked)}), flush=True)
+
+
+def five_point_pose(seeds, eager: bool) -> None:
+    """``vo_step`` with ``RansacConfig(solver="5pt")`` on the corridor pair
+    at each RANSAC seed: jitted, or with ``eager`` under
+    ``jax.disable_jit()`` (the 5-point solver's compile can take longer
+    than a run of eager steps). Each line says which it ran."""
+    import contextlib
+
+    import jax
+
+    from epivo_tpu.pipeline import vo
+
+    f0, f1, cfg, T_gt = corridor_pair()
+    cfg = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac, solver="5pt"))
+    with jax.disable_jit() if eager else contextlib.nullcontext():
+        for seed in seeds:
+            t0 = time.perf_counter()
+            r = vo.vo_step(f0, f1, jax.random.PRNGKey(seed), cfg)
+            row = _pose_row(r.T, T_gt)
+            print(json.dumps({"seed": seed, "mode": "eager" if eager else "jit", **row,
+                              "n_inliers": int(r.n_inliers), "reverted": bool(r.reverted),
+                              "wall_s": time.perf_counter() - t0}), flush=True)
 
 
 def turn(seeds) -> None:
@@ -184,6 +229,40 @@ def back_half_cmd(paths, n_frames: int) -> None:
             print(json.dumps({"pairs": path, "back_half": name,
                               **photoreal_ate.score_no_gt(np.asarray(res.trajectory),
                                                           gt, length)}), flush=True)
+
+
+def global_cmd(paths, n_frames: int) -> None:
+    """The global-BA polish's paired effect on saved pairs: for each file,
+    each package's back half (:func:`back_half`) with the polish off and
+    then on, on the same pairs. Prints the Sim(3) ATE, length ratio and
+    wall seconds of both runs and the paired delta (on - off, percentage
+    points of the length)."""
+    from epivo_tpu.pipeline import runners as jrunners
+    from epivo_tpu.pipeline.config import GlobalBAConfig
+    from epivo_tpu_torch import convert
+    from epivo_tpu_torch.datasets import photoreal
+    from epivo_tpu_torch.pipeline import runners as trunners
+    from epivo_tpu_torch.tools import photoreal_ate
+
+    _, gt, _ = photoreal.corridor_sequence(n_frames, **photoreal_ate.FIXTURE)  # frames lazy
+    length = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=-1)))
+    cfg_off = corridor_ba_config()
+    cfg_on = dataclasses.replace(cfg_off, global_ba=GlobalBAConfig(enabled=True))
+    for path in paths:
+        pairs = trunners._unpack_pairs(dict(np.load(path)))
+        for name, mod, conv, kw in (("reference", jrunners, lambda c: c, {}),
+                                    ("port", trunners, convert.config_from_reference,
+                                     {"device": "cpu"})):
+            row = {"pairs": path, "back_half": name}
+            for tag, cfg in (("off", cfg_off), ("on", cfg_on)):
+                t0 = time.perf_counter()
+                res = back_half(mod, n_frames, conv(cfg), pairs, **kw)
+                row[tag] = {**photoreal_ate.score_no_gt(np.asarray(res.trajectory), gt,
+                                                        length),
+                            "wall_s": time.perf_counter() - t0}
+            row["delta_pp"] = (row["on"]["ate_sim3_pct_of_length"]
+                               - row["off"]["ate_sim3_pct_of_length"])
+            print(json.dumps(row), flush=True)
 
 
 def sequence(seeds, n_frames: int, batch: int, workers: int, save_pairs=None) -> None:
@@ -353,8 +432,8 @@ def loop(course: str, seeds, batch: int, workers: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("command", choices=("orb-pose", "turn", "sequence", "back-half",
-                                        "stereo", "loop"))
+    ap.add_argument("command", choices=("orb-pose", "five-point", "turn", "sequence",
+                                        "back-half", "global", "stereo", "loop"))
     ap.add_argument("--seeds", default="0", help="comma list, or a range lo-hi")
     ap.add_argument("--frames", type=int, default=300)
     ap.add_argument("--batch", type=int, default=None,
@@ -362,7 +441,10 @@ def main(argv=None) -> int:
     ap.add_argument("--workers", type=int, default=4, help="render processes")
     ap.add_argument("--save-pairs", default=None, metavar="DIR",
                     help="sequence, stereo: write each seed's pairs under DIR")
-    ap.add_argument("--pairs", nargs="*", default=(), help="back-half: saved pair files")
+    ap.add_argument("--pairs", nargs="*", default=(),
+                    help="back-half, global: saved pair files")
+    ap.add_argument("--eager", action="store_true",
+                    help="five-point: run the step under jax.disable_jit()")
     ap.add_argument("--course", default="out-and-back",
                     choices=("out-and-back", "offset", "two-lap", "drift"), help="loop")
     args = ap.parse_args(argv)
@@ -373,6 +455,10 @@ def main(argv=None) -> int:
     seeds = _seeds(args.seeds)
     if args.command == "orb-pose":
         orb_pose(seeds)
+    elif args.command == "five-point":
+        five_point_pose(seeds, args.eager)
+    elif args.command == "global":
+        global_cmd(args.pairs, args.frames)
     elif args.command == "turn":
         turn(seeds)
     elif args.command == "sequence":

@@ -134,8 +134,14 @@ def test_ransac_own_samples_and_unported_solver():
     R, t, _ = tess.recover_pose(res.E, _t(p), _t(p_t), mask=res.inliers)
     np.testing.assert_allclose(R.numpy(), T[:3, :3], atol=2e-2)
     assert int(res.n_inliers) >= 60
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transac.ransac_essential(g, _t(p), _t(p_t), solver="5pt")
+    # The 5-point solver on the port's own samples recovers the pose too.
+    res5 = transac.ransac_essential(g, _t(p), _t(p_t), n_hyp=128,
+                                    threshold=(1.0 / 300.0) ** 2, solver="5pt")
+    R5, _, _ = tess.recover_pose(res5.E, _t(p), _t(p_t), mask=res5.inliers)
+    np.testing.assert_allclose(R5.numpy(), T[:3, :3], atol=2e-2)
+    assert int(res5.n_inliers) >= 60
+    with pytest.raises(ValueError, match="unknown solver"):
+        transac.ransac_essential(g, _t(p), _t(p_t), solver="7pt")
     assert transac.n_iterations(0.99, 0.5) == jransac.n_iterations(0.99, 0.5)
 
 

@@ -434,19 +434,19 @@ def test_runners_refuse_what_is_not_ported():
     from epivo_tpu_torch.pipeline.config import BAConfig, GlobalBAConfig, LoopConfig
 
     frames = [np.zeros((8, 8), np.float32)] * 4
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         trunners.run_vo_sequence(frames, convert.config_from_reference(VO_CFG),
                                  mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        trunners.run_ba_sequence(frames, BAConfig(global_ba=GlobalBAConfig(enabled=True)),
-                                 device="cpu")
-    # Loop closure is ported: it passes the refusal, and global BA beside
-    # it is still refused.
-    trunners._refuse(None, BAConfig(loop=LoopConfig(enabled=True)))
-    with pytest.raises(NotImplementedError, match="A14"):
-        trunners.run_ba_sequence(frames, BAConfig(loop=LoopConfig(enabled=True),
-                                                  global_ba=GlobalBAConfig(enabled=True)),
-                                 device="cpu")
+    # The global-BA polish and loop closure are ported: the refusal reads
+    # only the mesh (tests/test_torch_global_ba.py runs run_ba_sequence with
+    # global_ba.enabled), and the mesh beside them is still refused.
+    trunners._refuse(None)
+    both = BAConfig(loop=LoopConfig(enabled=True), global_ba=GlobalBAConfig(enabled=True))
+    with pytest.raises(NotImplementedError, match="A14b"):
+        trunners.run_ba_sequence(frames, both, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A14b"):
+        trunners.refine_global(np.tile(np.eye(4, dtype=np.float32), (3, 1, 1)), {}, both,
+                               mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trunners.run_vo_sequence(frames, convert.config_from_reference(VO_CFG))

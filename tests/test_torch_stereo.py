@@ -174,9 +174,9 @@ def test_stereo_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A14"):
         trunners.run_stereo_ba_sequence(L, R, TCFG, T_rig=np.eye(4), mesh=object(),
                                         device="cpu")
-    # Loop closure is ported: it passes the refusal, and the mesh beside it
-    # is still refused.
-    trunners._refuse(None, TBAConfig(loop=LoopConfig(enabled=True)), global_ba=False)
+    # Loop closure is ported: the refusal reads only the mesh, and the mesh
+    # beside loop closure is still refused.
+    trunners._refuse(None)
     with pytest.raises(NotImplementedError, match="A14"):
         trunners.run_stereo_ba_sequence(L, R, TBAConfig(loop=LoopConfig(enabled=True)),
                                         T_rig=np.eye(4), mesh=object(), device="cpu")
