@@ -1,5 +1,5 @@
-"""Global (full-trajectory) bundle adjustment on one device (port of
-``epivo_tpu/parallel/global_ba.py``).
+"""Global (full-trajectory) bundle adjustment, on one device or with its
+constraints sharded over a mesh (port of ``epivo_tpu/parallel/global_ba.py``).
 
 ONE joint LM problem over the whole zeta chain, with
 
@@ -18,9 +18,13 @@ ONE joint LM problem over the whole zeta chain, with
   reference's dense [Z, Z, 4, 4] prefix table are built, as S - 1 batched
   products in the reference's order.
 
-The reference shards the constraint axis over a device mesh and reduces
-each sum with a ``psum``; on one device those are plain sums. ``mesh``
-is refused until the multi-device layer is ported (ROADMAP A14b).
+With a ``mesh`` the constraint axis is sharded over its ``win`` axis, as
+in the reference: each rank builds the local system of its own block of
+constraints (its own incidence table), and the right-hand side, the
+diagonal, every matvec and every energy are summed over the ranks by one
+``all_reduce`` each (the reference's four ``psum``s; the right-hand side
+and the diagonal share one). The poses, lambda and the accept test are
+then the same on every rank, so every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.geometry import epipolar, se3
+from epivo_tpu_torch.parallel import mesh as mesh_mod
 
 
 class GlobalBAResult(NamedTuple):
@@ -223,20 +228,33 @@ def global_ba_solve(
       T0s: [Z, 4, 4] initial chain.
       reps: [R, 2] spans (|z1 - z0| + 1 <= max_span; numpy, static).
       p, p_t: [R, N, 3] matches; wreps [R]; pmask [R, N].
-      mesh: not ported yet (the reference shards the constraints over it);
-        anything but None raises.
+      mesh: a ``DeviceMesh`` (``parallel.mesh.make_mesh``) built for T0s's
+        device: R is sharded over its ``win`` axis and must divide evenly
+        (pad with zero-weight constraints); every rank passes the whole
+        arrays and gets the same result.
 
     Each of the ``max_iters`` LM iterations accepts its step when the
     energy falls (lambda / 2) and rejects it otherwise (lambda x 5), with
     a NaN guard; ``r_norm`` is the square root of the last accepted
     energy.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the constraint-sharded global BA is not ported yet (ROADMAP A14b)")
     Z = T0s.shape[0]
     dtype, dev = T0s.dtype, T0s.device
     reps_np = np.asarray(reps, np.int32)
+    w = (torch.ones(reps_np.shape[0], dtype=dtype, device=dev) if wreps is None
+         else wreps.to(device=dev, dtype=dtype))
+    pm = pmask if pmask is not None else torch.ones(p.shape[:2], dtype=torch.bool,
+                                                    device=dev)
+    if mesh is not None:
+        mesh_mod.check_mesh(mesh, dev)
+        R = reps_np.shape[0]
+        if R % mesh_mod.axis_size(mesh, "win"):
+            raise ValueError(f"constraint count {R} must divide the mesh axis 'win' "
+                             f"({mesh_mod.axis_size(mesh, 'win')}); pad with "
+                             f"zero-weight constraints")
+        lo, hi = mesh_mod.block(R, mesh, "win")
+        reps_np, p, p_t, w, pm = reps_np[lo:hi], p[lo:hi], p_t[lo:hi], w[lo:hi], pm[lo:hi]
+    psum = lambda x: mesh_mod.psum(x, mesh, "win")
     zidx_np, zmask_np = _span_data(reps_np, max_span)
     inc_np, inc_ok_np = _incidence(zidx_np, zmask_np, Z)
     reps_t = constant(reps_np.astype(np.int64), torch.int64, dev)
@@ -244,15 +262,11 @@ def global_ba_solve(
     zmask = constant(zmask_np, torch.bool, dev)
     inc = constant(inc_np, torch.int64, dev)
     inc_ok = constant(inc_ok_np, torch.bool, dev)
-    w = (torch.ones(reps_np.shape[0], dtype=dtype, device=dev) if wreps is None
-         else wreps.to(device=dev, dtype=dtype))
-    pm = pmask if pmask is not None else torch.ones(p.shape[:2], dtype=torch.bool,
-                                                    device=dev)
 
     def energy(Ts):
         T0r = _compose(prefix_band(Ts, max_span), reps_t)
         r = epipolar.residual_from_T(T0r, p, p_t, huber_delta, pm)
-        return torch.sum((r * w[:, None]) ** 2)
+        return psum(torch.sum((r * w[:, None]) ** 2))
 
     Ts = T0s
     lam = torch.full((), lambda0, dtype=dtype, device=dev)
@@ -261,8 +275,8 @@ def global_ba_solve(
     for _ in range(max_iters):
         r, J = _local_system(Ts, reps_t, zidx, zmask, w, p, p_t, huber_delta, pm,
                              max_span)
-        b, diag = _rhs_and_diag(J, r, inc, inc_ok)
-        delta = _pcg(lambda v: _matvec(J, zidx, v, inc, inc_ok), b, diag, lam,
+        b, diag = psum(torch.stack(_rhs_and_diag(J, r, inc, inc_ok)))
+        delta = _pcg(lambda v: psum(_matvec(J, zidx, v, inc, inc_ok)), b, diag, lam,
                      cg_iters)  # [Z, 6]
         bad = ~torch.all(torch.isfinite(delta))
         delta = torch.where(bad, 0.0, delta)

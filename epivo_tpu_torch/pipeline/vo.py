@@ -66,7 +66,7 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
                    n_tracked: torch.Tensor, matches_src: torch.Tensor,
                    matches_tgt: torch.Tensor, generator: torch.Generator | None,
                    config: VOConfig, ransac_samples: torch.Tensor | None,
-                   too_few: torch.Tensor | None = None) -> VOStepResult:
+                   too_few: torch.Tensor | None = None, hyp_mesh=None) -> VOStepResult:
     """Everything after association, shared by the KLT and ORB steps: B
     pairs of normalized matches p0/p1 [B, K, 3] with their mask
     ``status`` [B, K] -> RANSAC essential, refine-E, recoverPose and its
@@ -76,7 +76,8 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
 
     ``too_few`` [B] (the ORB step's match gate) replaces a pair's E-pose
     by the identity rotation and translation [0.1, 0.1, -0.9] and forces
-    its revert.
+    its revert. ``hyp_mesh`` splits RANSAC's hypotheses over a mesh's
+    ``hyp`` axis (:func:`ransac.ransac_essential`).
     """
     rc, lc = config.ransac, config.lm
     dev = p0.device
@@ -84,7 +85,7 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
     rres = ransac_mod.ransac_essential(
         generator, p0, p1, n_hyp=rc.hypotheses(), threshold=thr,
         mask=status, method=rc.method, solver=rc.solver,
-        samples=ransac_samples,
+        samples=ransac_samples, hyp_mesh=hyp_mesh,
     )
     E = rres.E
     if rc.refine_e:
@@ -141,7 +142,7 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
 def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
                     generator: torch.Generator | None, config: VOConfig,
                     ransac_samples: torch.Tensor | None = None,
-                    use_kernel: bool | None = None) -> VOStepResult:
+                    use_kernel: bool | None = None, hyp_mesh=None) -> VOStepResult:
     """B two-view VO steps at once. img0/img1: [B, H, W] float32 grayscale.
 
     The reference's ``jax.vmap(vo_step)`` with the pair axis written out:
@@ -151,7 +152,10 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
     ``generator`` draws every pair's RANSAC samples in one draw;
     ``ransac_samples`` (a LongTensor [B, n_hyp, m], m the solver's sample
     size: 8, or 5 with ``config.ransac.solver == "5pt"``) replaces that
-    draw.
+    draw; a :class:`ransac.BatchDraw` in place of ``generator`` draws a
+    larger batch and keeps these B lanes' rows of it. ``hyp_mesh`` (a
+    ``DeviceMesh`` with a ``hyp`` axis) splits every pair's hypotheses over
+    that axis, as the reference's ``vo_step(hyp_mesh=)`` does.
     ``use_kernel=None`` runs the CUDA kernels for CUDA images and the plain
     versions for CPU images. Every field of the result has a leading [B].
     """
@@ -169,7 +173,7 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
     p0 = cam.normalize(kp.xy, K_inv)  # [B, K, 3]
     p1 = cam.normalize(flow.xy, K_inv)
     return _two_view_tail(p0, p1, flow.status, n_tracked, kp.xy, flow.xy,
-                          generator, config, ransac_samples)
+                          generator, config, ransac_samples, hyp_mesh=hyp_mesh)
 
 
 def orb_associate(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
@@ -204,7 +208,7 @@ def orb_associate(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
 def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
                         generator: torch.Generator | None, config: VOConfig,
                         ransac_samples: torch.Tensor | None = None,
-                        use_kernel: bool | None = None) -> VOStepResult:
+                        use_kernel: bool | None = None, hyp_mesh=None) -> VOStepResult:
     """B two-view steps with ORB descriptor matching instead of KLT
     tracking (the reference's ``vo_step_orb``, pair axis written out).
     img0/img1: [B, H, W] float32.
@@ -216,7 +220,8 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
     accuracy. On CUDA images a single-scale call launches the FAST
     candidate kernel once and the window-extraction kernel once, and
     makes no host sync. ``n_tracked`` counts the matches.
-    ``ransac_samples`` and ``use_kernel`` as in :func:`vo_step_batched`.
+    ``ransac_samples``, ``use_kernel`` and ``hyp_mesh`` as in
+    :func:`vo_step_batched`.
     """
     K_inv = config.camera.K_inv(img0.dtype, img0.device)
     kp0, tgt_xy, status = orb_associate(img0, img1, config, use_kernel)
@@ -224,7 +229,8 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
     p0 = cam.normalize(kp0.xy, K_inv)
     p1 = cam.normalize(tgt_xy, K_inv)
     return _two_view_tail(p0, p1, status, n_matches, kp0.xy, tgt_xy, generator,
-                          config, ransac_samples, too_few=n_matches < 8)
+                          config, ransac_samples, too_few=n_matches < 8,
+                          hyp_mesh=hyp_mesh)
 
 
 def vo_step(img0: torch.Tensor, img1: torch.Tensor,

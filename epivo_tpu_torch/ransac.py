@@ -11,6 +11,11 @@ The reference draws its samples with ``jax.random.gumbel``, which torch
 cannot reproduce. ``ransac_essential`` therefore takes the sample indices
 as an optional tensor (``samples``); without it, the port draws its own
 Gumbel-top-k samples from a ``torch.Generator``.
+
+Across ranks (``parallel/mesh.py``): a :class:`BatchDraw` lets a rank that
+steps only some lanes of a batch draw the whole batch's samples and keep
+its own lanes, so N ranks draw what one rank draws; ``hyp_mesh`` splits
+the hypotheses of every lane over the mesh's ``hyp`` axis.
 """
 
 from __future__ import annotations
@@ -20,10 +25,23 @@ from typing import NamedTuple
 
 import torch
 
+from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.geometry import essential, fivepoint
+from epivo_tpu_torch.parallel import mesh as mesh_mod
 
 MIN_SAMPLE = 8  # 8-point minimal sample
 SAMPLE_SIZE = {"8pt": MIN_SAMPLE, "5pt": 5}  # sample size per solver
+
+
+class BatchDraw(NamedTuple):
+    """Stands in for the generator of a batched call that steps lanes
+    ``rows`` of a batch of ``total`` lanes: the draw is the whole batch's
+    (``total`` lanes, as one rank stepping every lane draws), and each lane
+    keeps its row's samples. Rows may repeat (padding lanes)."""
+
+    generator: torch.Generator
+    rows: tuple
+    total: int
 
 
 class RansacResult(NamedTuple):
@@ -53,7 +71,7 @@ def top_k_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _sample_indices(generator: torch.Generator, n_hyp: int, N: int,
+def _sample_indices(generator, n_hyp: int, N: int,
                     mask: torch.Tensor | None, sample_size: int = MIN_SAMPLE,
                     device=None, lead: tuple = ()) -> torch.Tensor:
     """[*lead, n_hyp, sample_size] sample indices, approx. without
@@ -61,9 +79,16 @@ def _sample_indices(generator: torch.Generator, n_hyp: int, N: int,
 
     One draw of [*lead, n_hyp, N] uniforms, so a single leading lane draws
     exactly what the unbatched call draws from the same generator state.
+    With a :class:`BatchDraw` (one leading axis of ``len(rows)`` lanes) the
+    draw is [total, n_hyp, N] and lane q takes row ``rows[q]``.
     """
-    u = torch.rand(tuple(lead) + (n_hyp, N), generator=generator,
-                   device=generator.device)
+    if isinstance(generator, BatchDraw):
+        g = generator.generator
+        u = torch.rand((generator.total, n_hyp, N), generator=g, device=g.device)
+        u = u.index_select(0, constant(generator.rows, torch.int64, g.device))
+    else:
+        u = torch.rand(tuple(lead) + (n_hyp, N), generator=generator,
+                       device=generator.device)
     u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
     g = (-torch.log(-torch.log(u))).to(device)
     if mask is not None:
@@ -82,6 +107,7 @@ def ransac_essential(
     refit: bool = True,
     solver: str = "8pt",
     samples: torch.Tensor | None = None,
+    hyp_mesh=None,
 ) -> RansacResult:
     """Robust essential-matrix estimation over batched hypotheses.
 
@@ -104,6 +130,13 @@ def ransac_essential(
         indices that replaces the random draw (how the tests feed the
         reference's samples in); m is the solver's sample size
         (``SAMPLE_SIZE``: 8 or 5).
+      hyp_mesh: a ``DeviceMesh`` whose ``hyp`` axis (size D > 1) splits the
+        hypotheses: every rank holds all ``n_hyp`` samples of every lane
+        (the same draw, or the same ``samples``), solves and scores its
+        contiguous block of n_hyp / D of them, and one ``all_gather`` over
+        ``hyp`` gives every rank all scores and candidates, in the order
+        one rank holds them; the winner is then the first maximum over all
+        of them, as without a mesh, and the refit runs replicated.
 
     Every lane picks its own winner (first maximum over all candidates on
     ties), its own LMedS median and its own guarded refit, with no host
@@ -117,7 +150,7 @@ def ransac_essential(
         out = ransac_essential(
             generator, p[None], p_t[None], n_hyp, threshold,
             None if mask is None else mask[None], method, refit, solver,
-            None if samples is None else samples[None])
+            None if samples is None else samples[None], hyp_mesh)
         return RansacResult(*(f[0] for f in out))
 
     B, N = p.shape[:2]
@@ -136,6 +169,10 @@ def ransac_essential(
             raise ValueError(f"samples must be [{B}, {n_hyp}, {m}], "
                              f"got {tuple(idx.shape)}")
     lane = torch.arange(B, device=p.device)
+    lo, hi = mesh_mod.block(n_hyp, hyp_mesh, "hyp")
+    if (lo, hi) != (0, n_hyp):
+        idx = idx[:, lo:hi]
+    n_hyp = hi - lo
     p_s, p_ts = p[lane[:, None, None], idx], p_t[lane[:, None, None], idx]
     if solver == "5pt":
         Es_c, hyp_ok = fivepoint.five_point(p_s.reshape(B * n_hyp, m, 3),
@@ -160,8 +197,19 @@ def ransac_essential(
         mid = torch.clamp(n_valid // 2, 0, N - 1)
         med = torch.gather(err_sorted, -1, mid[:, None, None].expand(B, H, 1))[..., 0]
         score = -med  # [B, H]
-        best = torch.argmax(score, dim=-1)  # [B]
-        best_med = med[lane, best]
+    else:
+        inl = (err < threshold) & valid[:, None, :]
+        score = torch.sum(inl, dim=-1).to(p.dtype)
+    if mesh_mod.axis_size(hyp_mesh, "hyp") > 1:
+        # Every rank's scores and candidates, hypothesis-major as one rank
+        # holds them: [D * H, B, 10] -> [B, D * H].
+        both = torch.cat([score[..., None], Es.reshape(B, H, 9)], dim=-1)
+        both = mesh_mod.gather_rows(both.transpose(0, 1), hyp_mesh, "hyp").transpose(0, 1)
+        score, Es = both[..., 0], both[..., 1:].reshape(B, -1, 3, 3)
+    # First maximum on ties, as jnp.argmax.
+    best = torch.argmax(score, dim=-1)  # [B]
+    if method == "lmeds":
+        best_med = -score[lane, best]
         # OpenCV-style robust sigma from the best median:
         # 2.5 * 1.4826 * (1 + 5/(n-8)) * sqrt(med); the gate is err < sigma^2,
         # floored at the caller's threshold.
@@ -169,10 +217,6 @@ def ransac_essential(
             * torch.sqrt(torch.clamp(best_med, min=1e-18))
         thr = torch.clamp(sigma * sigma, min=threshold).to(p.dtype)
     else:
-        inl = (err < threshold) & valid[:, None, :]
-        score = torch.sum(inl, dim=-1).to(p.dtype)
-        # First maximum on ties, as jnp.argmax.
-        best = torch.argmax(score, dim=-1)
         thr = torch.full((B,), threshold, dtype=p.dtype, device=p.device)
 
     E_best = Es[lane, best]  # [B, 3, 3]

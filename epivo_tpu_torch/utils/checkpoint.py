@@ -16,11 +16,15 @@ import numpy as np
 
 
 class SequenceCheckpointer:
-    """Snapshot/restore for sequence-runner state."""
+    """Snapshot/restore for sequence-runner state. A ``read_only``
+    checkpointer restores and keeps the same buckets but writes nothing
+    (the ranks of a mesh other than rank 0: two ranks never write one
+    file)."""
 
-    def __init__(self, directory: str, every: int = 50):
+    def __init__(self, directory: str, every: int = 50, read_only: bool = False):
         self.dir = directory
         self.every = every
+        self.read_only = read_only
         self._last_bucket = 0
         os.makedirs(directory, exist_ok=True)
 
@@ -42,6 +46,8 @@ class SequenceCheckpointer:
         return True
 
     def save(self, frame_idx: int, state: dict) -> None:
+        if self.read_only:
+            return
         arrays = {k: np.asarray(v) for k, v in state.items()}
         tmp = self._path(frame_idx) + ".tmp.npz"  # .npz keeps savez literal
         np.savez(tmp, **arrays)

@@ -22,7 +22,8 @@ rotation and 4.9e-7 in position on the rendered fixture's pairs, where
 the f64 refinement converges on no step; ``test_torch_stereo_scale.py``
 covers the steps where it does).
 
-``mesh`` still raises ``NotImplementedError``; ``config.loop.enabled``
+A ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError`` (the mesh
+runs are in ``tests/test_torch_runner_mesh.py``); ``config.loop.enabled``
 passes (``tests/test_torch_loopclose.py`` runs it).
 """
 
@@ -171,13 +172,12 @@ def test_stereo_refuses_what_is_not_ported():
     from epivo_tpu_torch.pipeline.config import BAConfig as TBAConfig, LoopConfig
 
     L = R = [np.zeros((8, 8), np.float32)] * 4
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trunners.run_stereo_ba_sequence(L, R, TCFG, T_rig=np.eye(4), mesh=object(),
                                         device="cpu")
-    # Loop closure is ported: the refusal reads only the mesh, and the mesh
-    # beside loop closure is still refused.
-    trunners._refuse(None)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # The mesh layer is ported: what is refused is a mesh that is not a
+    # torch.distributed DeviceMesh, beside loop closure too.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         trunners.run_stereo_ba_sequence(L, R, TBAConfig(loop=LoopConfig(enabled=True)),
                                         T_rig=np.eye(4), mesh=object(), device="cpu")
     if not torch.cuda.is_available():
