@@ -1,5 +1,5 @@
-"""Image utilities: gradients and pyramids (port of
-``epivo_tpu/frontend/image.py``).
+"""Image utilities: bilinear sampling, patches, gradients and pyramids
+(port of ``epivo_tpu/frontend/image.py``).
 
 Filters are explicit shifted-slice sums in the reference's order of terms,
 not ``conv2d``: cuDNN would run a float32 convolution in TF32 by default
@@ -20,6 +20,57 @@ from epivo_tpu_torch._device import constant
 _BINOMIAL = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 _SCHARR_S = (3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0)
 _SCHARR_D = (-0.5, 0.0, 0.5)
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample image [H, W] at subpixel positions xy [..., 2] (x, y order).
+
+    Out-of-bounds coordinates clamp to the border (OpenCV's
+    BORDER_REPLICATE, which calcOpticalFlowPyrLK's gather uses).
+    """
+    H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.000001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.000001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = x - x0.to(img.dtype)
+    fy = y - y0.to(img.dtype)
+    v00 = img[y0, x0]
+    v01 = img[y0, x1]
+    v10 = img[y1, x0]
+    v11 = img[y1, x1]
+    return (
+        v00 * (1 - fx) * (1 - fy)
+        + v01 * fx * (1 - fy)
+        + v10 * (1 - fx) * fy
+        + v11 * fx * fy
+    )
+
+
+def patch_coords(center: torch.Tensor, size: int) -> torch.Tensor:
+    """[..., 2] centers -> [..., size, size, 2] sample coordinates (x, y)."""
+    r = (size - 1) / 2.0
+    offs = torch.arange(size, dtype=center.dtype, device=center.device) - r
+    ox, oy = torch.meshgrid(offs, offs, indexing="xy")  # ox varies along x
+    grid = torch.stack([ox, oy], dim=-1)  # [size, size, 2]
+    return center[..., None, None, :] + grid
+
+
+def extract_patch(img: torch.Tensor, center: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear patch extraction: [H, W] x [..., 2] -> [..., size, size]."""
+    return bilinear_sample(img, patch_coords(center, size))
+
+
+def central_gradients(img: torch.Tensor):
+    """Central-difference gradients (Ix, Iy) of [..., H, W], zero on the
+    one-pixel border of each axis."""
+    Ix = torch.zeros_like(img)
+    Iy = torch.zeros_like(img)
+    Ix[..., :, 1:-1] = (img[..., :, 2:] - img[..., :, :-2]) * 0.5
+    Iy[..., 1:-1, :] = (img[..., 2:, :] - img[..., :-2, :]) * 0.5
+    return Ix, Iy
 
 
 def edge_pad(img: torch.Tensor, top: int, bottom: int, left: int,

@@ -50,6 +50,10 @@ class Pinhole:
 KITTI_00 = Pinhole(fx=718.8560, fy=718.8560, cx=607.1928, cy=185.2157,
                    width=1241, height=376)
 
+# EuRoC MAV cam0 pinhole part.
+EUROC_CAM0 = Pinhole(fx=458.654, fy=457.296, cx=367.215, cy=248.375,
+                     width=752, height=480)
+
 
 def normalize(pix: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
     """Pixel [..., 2] or homogeneous [..., 3] -> normalized homogeneous [..., 3]."""

@@ -12,6 +12,7 @@ children import this module, and nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 
 import numpy as np
@@ -119,17 +120,30 @@ def ransac_dist(samples, p, p_t, mask, n_hyp_per_device, threshold, mesh):
         samples, p, p_t, mask)
 
 
-class _PassCounts:
-    """A metrics logger for :func:`runners._extract_pairs` that reads the
-    kernel launch counts when the KLT pass has read its last batch, before
-    the ORB retry pass launches anything."""
+@contextlib.contextmanager
+def retry_launches(counts):
+    """Count the kernel launches made inside ``vo.vo_step_orb_batched``
+    (the ORB retry pass of :func:`runners._extract_pairs`) during the
+    block, ``counts()`` being the launch counters as a dict: yields a dict
+    that holds them when the block ends. The KLT pass's launches are the
+    block's total less these."""
+    from epivo_tpu_torch.pipeline import vo
 
-    def __init__(self, n_pairs: int, counts):
-        self.n_pairs, self.counts, self.klt = n_pairs, counts, None
+    retry = dict.fromkeys(counts(), 0)
+    orb_step = vo.vo_step_orb_batched
 
-    def log(self, record: dict) -> None:
-        if record.get("stage") == "extract" and record["pairs_done"] == self.n_pairs:
-            self.klt = self.counts()
+    def counted(*args, **kw):
+        before = counts()
+        out = orb_step(*args, **kw)
+        for k, v in counts().items():
+            retry[k] += v - before[k]
+        return out
+
+    vo.vo_step_orb_batched = counted
+    try:
+        yield retry
+    finally:
+        vo.vo_step_orb_batched = orb_step
 
 
 def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: dict,
@@ -170,16 +184,14 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
 
     out, wall, st = {}, {}, {}
     mesh_mod.COLLECTIVES.clear()
-    passes = _PassCounts(len(pairs), counts)
     reset()
     t0 = time.perf_counter()
-    out["pairs"] = runners._extract_pairs(stream.FrameStream(list(frames)), pairs, vo_cfg, 0,
-                                          mesh=win, device=dev, mlog=passes, stats=st,
-                                          **extract)
+    with retry_launches(counts) as retry:
+        out["pairs"] = runners._extract_pairs(stream.FrameStream(list(frames)), pairs, vo_cfg,
+                                              0, mesh=win, device=dev, stats=st, **extract)
     wall["extract_s"] = time.perf_counter() - t0
     total = counts()
-    out["launches"] = {"klt": passes.klt,
-                       "retry": {k: total[k] - passes.klt[k] for k in total},
+    out["launches"] = {"klt": {k: total[k] - retry[k] for k in total}, "retry": retry,
                        "step_lanes": st["step_lanes"], "retry_lanes": st["retry_lanes"]}
     out["retried"] = st["retried"]
 

@@ -84,3 +84,18 @@ def plot_trajectories(out_png: str, trajs: dict, cloud: np.ndarray | None = None
     ax.set_ylabel("xyz"[axes[1]])
     fig.savefig(out_png, dpi=130, bbox_inches="tight")
     plt.close(fig)
+
+
+def plot_or_skip(out_png: str, trajs: dict, cloud: np.ndarray | None = None) -> bool:
+    """:func:`plot_trajectories` where matplotlib is installed; otherwise
+    say on stderr that ``out_png`` was skipped. Returns whether it was
+    written."""
+    import importlib.util
+    import sys
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"matplotlib is not installed: {os.path.basename(out_png)} skipped",
+              file=sys.stderr)
+        return False
+    plot_trajectories(out_png, trajs, cloud=cloud)
+    return True

@@ -61,8 +61,27 @@ pair files ``--save-pairs`` asks for:
   mode); ``--course drift``: the drift-injected fixture, ``close_loops``
   on the out-and-back ground truth with the tool's per-step drift.
 
+- ``kitti-cli``: the JAX package's KITTI CLI (``scripts/run_kitti.py
+  --platform cpu --mode vo``, LMedS with the ground truth's step lengths)
+  on the tree ``chip_smoke.py``'s phase 14 writes: the corridor's first
+  ``--frames`` frames (64 there) rounded to uint8 as
+  ``sequences/00/image_0/*.png`` (``chip_smoke.kitti_tree``, in a
+  temporary directory), at phase 9's frontend settings (FAST 30, 512
+  keypoints, batches of 32 pairs): its summary, and its ATE as a
+  percentage of the trajectory's length. The CLI takes no seed.
+
+- ``demo-scenes``: the two-view KLT demo on scenes drawn with numpy
+  (``synthetic_vo_demo.numpy_scene(seed)``) through both packages: the
+  JAX package's ``examples/synthetic_vo_demo.py`` (its ``main``, with its
+  two ``jax.random.uniform`` draws answered by the numpy scene's, so the
+  scene is bit-equal) and the port's ``tools/synthetic_vo_demo.py
+  --scene-seed``, each on the CPU: E-pose and LM-pose errors and the
+  demo's verdict (LM rotation < 0.02, direction < 0.05), per seed.
+
     python -m tests.reference_accuracy stereo --frames 60 --seeds 0-3
     python -m tests.reference_accuracy loop --course out-and-back --seeds 0-3
+    python -m tests.reference_accuracy kitti-cli --frames 64
+    python -m tests.reference_accuracy demo-scenes --seeds 0-3
 """
 
 from __future__ import annotations
@@ -430,10 +449,126 @@ def loop(course: str, seeds, batch: int, workers: int) -> None:
         print(json.dumps(run), flush=True)
 
 
+def kitti_cli(n_frames: int, batch: int, workers: int) -> None:
+    import contextlib
+    import importlib.util
+    import io
+    import sys
+    import tempfile
+
+    import jax
+
+    import chip_smoke
+    from epivo_tpu_torch.tools import photoreal_ate
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    frames, gt, K, length = photoreal_ate.render_corridor(n_frames, workers=workers)
+    spec = importlib.util.spec_from_file_location(
+        "run_kitti_cli", os.path.join(repo, "scripts", "run_kitti.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    with tempfile.TemporaryDirectory() as tmp:
+        chip_smoke.kitti_tree(tmp, frames, gt, K)
+        argv = ["run_kitti.py", "--root", tmp, "--mode", "vo", "--platform", "cpu",
+                "--batch", str(batch), "--fast-threshold", "30", "--max-keypoints", "512",
+                "--out", os.path.join(tmp, "out")]
+        t0 = time.perf_counter()
+        old, sys.argv = sys.argv, argv
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main()
+        finally:
+            sys.argv = old
+        with open(os.path.join(tmp, "out", "summary.json")) as f:
+            summary = json.load(f)
+    print(json.dumps({"command": "kitti-cli", "platform": jax.devices()[0].platform,
+                      "frames": n_frames, "trajectory_length_m": length,
+                      "ate_pct_of_length": 100.0 * summary["ate_m"] / length,
+                      "summary": summary, "wall_s": time.perf_counter() - t0}), flush=True)
+
+
+DEMO_ERRORS = r"(E-pose|LM-pose|ORB-pose)\s*: \|R-R_gt\|=([0-9.]+)  \|t_dir err\|=([0-9.]+)"
+
+
+def demo_errors(text: str) -> dict:
+    """The errors a synthetic demo printed: {"E-pose": [rot, dir],
+    "LM-pose": [rot, dir]} (also "ORB-pose"), and its "RESULT ok=" word."""
+    import re
+
+    out = {m[0]: [float(m[1]), float(m[2])]
+           for m in re.findall(DEMO_ERRORS, text)}
+    ok = re.search(r"RESULT ok=(\S+)", text)
+    out["result"] = ok.group(1) if ok else None
+    return out
+
+
+def run_jax_example(name: str, argv: list, draws=None) -> tuple[int, str]:
+    """``examples/<name>.py``'s ``main`` in this process with ``argv``
+    (its module parses them when it is loaded), on the platform this
+    process's JAX uses (the CPU here and in the tests): its exit status
+    and standard output. ``draws``, where given, answers the example's
+    ``jax.random.uniform`` calls in order (numpy arrays), the keys staying
+    the example's own."""
+    import contextlib
+    import importlib.util
+    import io
+    import sys
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(repo, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    old, sys.argv = sys.argv, [f"{name}.py", *argv]
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.argv = old
+    if draws is not None:
+        it = iter(draws)
+        mod.jax = types.SimpleNamespace(random=types.SimpleNamespace(
+            PRNGKey=jax.random.PRNGKey, split=jax.random.split,
+            uniform=lambda key, shape, minval, maxval: jnp.asarray(next(it))))
+    buf, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            mod.main()
+        except SystemExit as e:
+            code = e.code or 0
+    return code, buf.getvalue()
+
+
+def demo_scenes(seeds) -> None:
+    import contextlib
+    import io
+
+    import torch
+
+    from epivo_tpu_torch.tools import synthetic_vo_demo
+
+    for seed in seeds:
+        t0 = time.perf_counter()
+        _, jax_text = run_jax_example("synthetic_vo_demo", [],
+                                      draws=synthetic_vo_demo.numpy_draws(seed))
+        jax_s = time.perf_counter() - t0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            synthetic_vo_demo.main(["--device", "cpu", "--scene-seed", str(seed)])
+        print(json.dumps({"command": "demo-scenes", "seed": seed,
+                          "jax": demo_errors(jax_text), "port": demo_errors(buf.getvalue()),
+                          "jax_wall_s": jax_s, "port_wall_s": time.perf_counter() - t0,
+                          "torch_threads": torch.get_num_threads()}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("command", choices=("orb-pose", "five-point", "turn", "sequence",
-                                        "back-half", "global", "stereo", "loop"))
+                                        "back-half", "global", "stereo", "loop",
+                                        "kitti-cli", "demo-scenes"))
     ap.add_argument("--seeds", default="0", help="comma list, or a range lo-hi")
     ap.add_argument("--frames", type=int, default=300)
     ap.add_argument("--batch", type=int, default=None,
@@ -467,6 +602,10 @@ def main(argv=None) -> int:
         stereo(seeds, args.frames, args.batch or 8, args.workers, args.save_pairs)
     elif args.command == "loop":
         loop(args.course, seeds, args.batch or 32, args.workers)
+    elif args.command == "kitti-cli":
+        kitti_cli(args.frames, args.batch or 32, args.workers)
+    elif args.command == "demo-scenes":
+        demo_scenes(seeds)
     else:
         back_half_cmd(args.pairs, args.frames)
     return 0
