@@ -26,12 +26,12 @@ Phases, each reported on its own line:
    as a single step has, no host sync in the whole call, every lane
    against the ground truth, the kernel path against the plain path and
    lane 0 against a single vo_step with the same samples, a repeat probe,
-   pairs/s in turns with single steps, and fast_cand / klt_level at B = 8
-   against their plain versions with device time and bound;
+   pairs/s (tools/bench.py's measure_batched), and fast_cand / klt_level
+   at B = 8 against their plain versions with device time and bound;
 7. ba: ba_windows on the 512 windows of bench_ba_workload.npz (the bench's
    BA workload): no host sync, the card against the port's CPU path, the
    same ATen operators at W = 64 and W = 512 (no loop over windows), and
-   windows/s and LM iterations/s;
+   windows/s and LM iterations/s (tools/bench.py's measure_ba);
 8. orb: vo_step_orb on the corridor pair (one fast_cand and one extract
    launch per step), vo_step_orb_batched at B = 8 (no host sync, bit-equal
    on repeat, every lane against the ground truth, kernel path against
@@ -101,15 +101,25 @@ Phases, each reported on its own line:
    bit-equal to their runners on the same frames in memory, the ba run's
    launches, vo's ATE against the JAX CLI's on the CPU, the reference
    CLI's files and summary keys); and tools/synthetic_vo_demo.py with its
-   --flat probe.
+   --flat probe;
+15. bench: tools/bench.py's measurements at their smallest counts
+   (bench.QUICK) on phase 4's corridor pair and bench_ba_workload.npz
+   (latency, batched, BA, the five-stage split), both one-core baselines'
+   code (native_ba.solve_all, cv2_kitti_e.run_pair) once in this process,
+   and the bench's line from them: every key present, finite and > 0,
+   vs_baseline = value / baseline_fps; the kernels launched per
+   vo_step_batched call inside measure_batched (fast_cand 1, klt_level 4).
+   The bench itself, with the baselines pinned to one core, runs in its
+   own call: python3 -m epivo_tpu_torch.tools.bench.
 
 Before the last two lines, one JSON object holds the batched, BA, ORB,
-sequence, stereo, loop, five-point, global, multi-device and entry-point
-phases' numbers; the line before the last is a JSON object with one entry
+sequence, stereo, loop, five-point, global, multi-device, entry-point and
+bench phases' numbers; the line before the last is a JSON object with one entry
 per kernel (launches per KLT step, per ORB step, per pyramid ORB step, in
 the sequence run, in the stereo run, in the loop run, in its loop stage,
 per loop-stage call, per 5-point step, per rank and call of the 2-rank
-extraction, and in the KITTI CLI's ba run); the last line is {"ok": true,
+extraction, in the KITTI CLI's ba run, and per batched call of the
+bench); the last line is {"ok": true,
 "device": {...}}. Any failed check raises and exits non-zero without that
 line. Imports nothing of JAX.
 """
@@ -127,6 +137,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from epivo_tpu_torch.tools.bench import PEAK_BYTES_S, PEAK_F32_S
 
 H, W = 376, 1241
 SEED = 7
@@ -149,8 +161,10 @@ FREEZE_NEAR_RTOL, FREEZE_ERR_RTOL = 1e-4, 1e-2
 STEP_R_TOL, STEP_DIR_TOL = 2e-3, 2e-3
 # Pose against the corridor's ground truth.
 GT_R_TOL, GT_DIR_TOL = 0.01, 0.1
-# Pairs per batched call (bench.py's batched mode).
+# Pairs per batched call (bench.py's batched mode), and the timed calls
+# behind phases 6 and 7's throughput (the best of them, after a warm one).
 N_PAIRS = 8
+BATCHED_REPS = 2
 # Windowed BA, card against the port's CPU path, at the tolerances of the
 # CPU tests (tests/test_torch_ba.py): rotations, translation directions,
 # accepted steps, and the final residual norm (rtol, atol); the share of
@@ -386,10 +400,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-# The card's peaks for the bound (H100 SXM data sheet): HBM bytes/s, and
-# float32 operations/s outside the tensor cores (an FMA counts as two).
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
+# The card's peaks for the bound, PEAK_BYTES_S and PEAK_F32_S, are the
+# bench's (tools/bench.py: H100 SXM data sheet, HBM bytes/s and float32
+# operations/s outside the tensor cores, an FMA counting as two).
 # Float operations per pixel, counted from the kernels' arithmetic.
 SAMPLE_OPS = 11  # four-tap bilinear blend: 8 products, 3 sums
 LK_STEP_OPS = SAMPLE_OPS + 5  # residual, and 2 multiply-adds into b
@@ -906,10 +919,10 @@ def phase_kernels(f0, f1, cfg) -> dict:
 
 
 def bench_config():
-    """The bench configuration (``bench.py``'s), as the runner bench uses it."""
-    from epivo_tpu_torch.tools.bench_runner import bench_config as config
+    """The bench configuration (``tools/bench.py``'s, which is ``bench.py``'s)."""
+    from epivo_tpu_torch.tools import bench
 
-    return config()
+    return bench._config()
 
 
 def _pose_err(T, T_ref):
@@ -1053,6 +1066,7 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     from epivo_tpu_torch import ransac
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.pipeline import vo
+    from epivo_tpu_torch.tools import bench
 
     dev = f0.device
     fc = cfg.frontend
@@ -1107,18 +1121,15 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
           f"vo_step, same samples, |dR|_F={r_1:.3g} dir={d_1:.3g}; n_inliers "
           f"{[int(x) for x in r_k.n_inliers]}")
 
-    # Throughput: batched calls in turns with single steps.
-    times = {"batched": [], "single": []}
-    single = lambda: vo.vo_step(f0, f1, gen(), cfg)
-    for turn in ("batched", "single", "single", "batched"):
-        times[turn] += [host_ms(batched if turn == "batched" else single)
-                        for _ in range(3)]
-    ms_b, ms_1 = float(np.median(times["batched"])), float(np.median(times["single"]))
-    pairs_s, single_pairs_s = n_pairs / ms_b * 1e3, 1e3 / ms_1
-    print(f"batched: {pairs_s:.2f} pairs/s at B={n_pairs} (median {ms_b:.2f} ms per call "
-          f"over {len(times['batched'])}); single step {single_pairs_s:.2f} pairs/s "
-          f"(median {ms_1:.2f} ms over {len(times['single'])}); in turns, host clock, "
-          f"synchronised")
+    # Throughput: the bench's measure_batched (tools/bench.py), one call a
+    # timed run, the best of BATCHED_REPS after a warm one.
+    pairs_s, spread = bench.measure_batched(
+        lambda a, b, g: vo.vo_step_batched(a, b, g, cfg), f0, f1, gen(), n_pairs, 1,
+        BATCHED_REPS)
+    ms_b = n_pairs / pairs_s * 1e3
+    print(f"batched: {pairs_s:.2f} pairs/s at B={n_pairs} ({ms_b:.2f} ms per call, the "
+          f"best of {BATCHED_REPS}, spread {spread:.3f}; bench.measure_batched, host "
+          f"clock, synchronised)")
 
     # fast_cand and klt_level (top and finest level) at B on the inputs
     # the step gives them.
@@ -1128,8 +1139,7 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
                               min_eig, 1), f"batched: B={n_pairs}")
              for S, (src, tgt, pts, guess) in ((46, levels[0]), (34, levels[-1]))}
     return dict(
-        launches=launches, pairs_s=pairs_s, single_pairs_s=single_pairs_s,
-        ms_per_call=ms_b, single_ms=ms_1,
+        launches=launches, pairs_s=pairs_s, ms_per_call=ms_b, rep_spread=spread,
         fast_cand=cand_report(img0, FAST_T, f"batched: B={n_pairs}"), klt_level=level)
 
 
@@ -1259,6 +1269,7 @@ def phase_ba(dev) -> dict:
     configuration: finite, no host sync, the card against the port's CPU
     path, the same device work at W = 64 and all windows, and windows/s."""
     from epivo_tpu_torch.pipeline import ba, config
+    from epivo_tpu_torch.tools import bench
 
     z = np.load(Path(__file__).resolve().parent / "bench_ba_workload.npz")
     spec = ba.mono_window_spec(3)
@@ -1338,14 +1349,14 @@ def phase_ba(dev) -> dict:
     _check(abs(dev_all - dev_small) <= BA_DEVICE_RTOL * dev_small,
            f"BA device activities: {dev_small} at W=64, {dev_all} at W={n_win}")
 
-    ms = [host_ms(lambda: run(gpu)) for _ in range(7)]
-    per_call = float(np.median(ms))
-    win_s = n_win / per_call * 1e3
+    win_s, iters_s, spread = bench.measure_ba({k: z[k] for k in keys}, dev, 1, BATCHED_REPS)
+    per_call = n_win / win_s * 1e3
     print(f"ba: {n_all} ATen operators per call at W=64 and W={n_win}, device "
           f"activities {dev_small} and {dev_all}; {win_s:.1f} windows/s, "
-          f"{win_s * cfg.lm.max_iters:.1f} LM iterations/s (median {per_call:.2f} ms "
-          f"per call over {len(ms)}, host clock, synchronised)")
-    return dict(windows_s=win_s, iters_s=win_s * cfg.lm.max_iters, ms_per_call=per_call,
+          f"{iters_s:.1f} LM iterations/s ({per_call:.2f} ms per call, the best of "
+          f"{BATCHED_REPS}, spread {spread:.3f}; bench.measure_ba, host clock, "
+          f"synchronised)")
+    return dict(windows_s=win_s, iters_s=iters_s, ms_per_call=per_call, rep_spread=spread,
                 operators=n_all, device_activities=dev_all, within=int(within.sum()),
                 within_control=int(within_ctl.sum()))
 
@@ -2919,6 +2930,93 @@ def phase_entry_points(dev, runtime_build, frames, gt, stereo) -> tuple[dict, di
     return report, total
 
 
+# The bench line's keys (bench.py:519-539, the two roofline fractions
+# against the float32 peak) and the stages of its split.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "latency_fps", "baseline_fps",
+              "ba_windows_per_s", "ba_iters_per_s", "vs_baseline_ba",
+              "ba_baseline_windows_per_s", "ba_baseline_iters_per_s", "rep_spread",
+              "vo_gflops", "vo_frac_fp32_peak", "ba_gflops", "ba_frac_fp32_peak",
+              "stages_ms", "device"}
+BENCH_STAGES = {"fast_detect", "klt_track", "ransac_recover", "lm_refine", "triangulate"}
+
+
+def phase_bench(f0, f1, cfg, smi: str) -> tuple[dict, dict]:
+    """tools/bench.py's measurements at their smallest counts (bench.QUICK)
+    on phase 4's corridor pair and bench_ba_workload.npz, both baselines'
+    solve_all / run_pair once in this process, and the bench's line from
+    them: every key present, finite and > 0, vs_baseline = value /
+    baseline_fps. Returns (the line, the kernels' launches per
+    vo_step_batched call inside measure_batched)."""
+    import cv2
+
+    from epivo_tpu_torch import runtime
+    from epivo_tpu_torch.pipeline import vo
+    from epivo_tpu_torch.tools import bench, cv2_kitti_e, native_ba
+
+    dev = f0.device
+    q = bench.QUICK
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = lambda a, b, g: vo.vo_step(a, b, g, cfg)
+    step_batched = lambda a, b, g: vo.vo_step_batched(a, b, g, cfg)
+
+    reset_launches()
+    batched_fps, spread_b = bench.measure_batched(step_batched, f0, f1, gen, q["n_batch"],
+                                                  q["n_batch_iters"], q["n_reps"])
+    calls = (1 + q["n_reps"]) * q["n_batch_iters"]  # the warm run's too
+    launches = launches_now()
+    per_call = {"fast": 0, "fast_cand": 1, "klt_level": cfg.frontend.klt_levels,
+                "extract": 0, "lk": 0}
+    _check(launches == {k: v * calls for k, v in per_call.items()},
+           f"bench: launches {launches} over {calls} vo_step_batched calls in "
+           f"measure_batched, not {per_call} per call")
+    latency_fps, spread_l = bench.measure_latency(step, f0, f1, gen, q["n_iters"],
+                                                  q["n_reps"])
+    ba_data = bench.build_ba_workload()
+    *ba, spread_ba = bench.measure_ba(ba_data, dev, q["n_ba_iters"], q["n_reps"])
+    stages = bench.measure_stages(cfg, f0, f1, gen, q["n_stage_iters"], q["n_reps"])
+
+    # The baselines' code once each, in this process (unpinned: a check
+    # that it runs here, not the one-core measurement the bench makes).
+    threads = cv2.getNumThreads()
+    cv2.setNumThreads(1)
+    try:
+        K = cfg.camera.K(torch.float64).numpy()
+        inputs = cv2_kitti_e.pair_inputs(f0.cpu().numpy(), f1.cpu().numpy(), K)
+        t0 = time.perf_counter()
+        T, n_cloud = cv2_kitti_e.run_pair(cv2, *inputs, runtime.lm_refine_pose)
+        cv2_s = time.perf_counter() - t0
+    finally:
+        cv2.setNumThreads(threads)
+    _check(T.shape == (4, 4) and bool(np.isfinite(T).all()), "cv2 baseline pose not finite")
+    t0 = time.perf_counter()
+    iters = native_ba.solve_all(runtime, ba_data)
+    native_s = time.perf_counter() - t0
+    n_win = ba_data["T0s"].shape[0]
+    cpus = sorted(os.sched_getaffinity(0))
+    base = {"fps": 1 / cv2_s, "cv2_version": cv2.__version__, "cpus": cpus}
+    base_ba = {"windows_per_s": n_win / native_s, "iters_per_s": iters / native_s,
+               "cpus": cpus}
+    line = bench.bench_line(batched_fps, latency_fps, ba, stages, base, base_ba,
+                            {"batched": spread_b, "latency": spread_l, "ba": spread_ba},
+                            smi)
+
+    _check(BENCH_KEYS <= set(line), f"bench line lacks {BENCH_KEYS - set(line)}")
+    _check(set(line["stages_ms"]) == BENCH_STAGES, f"bench stages {set(line['stages_ms'])}")
+    numbers = [line[k] for k in BENCH_KEYS - {"metric", "unit", "rep_spread", "stages_ms",
+                                              "device"}] + list(line["stages_ms"].values())
+    _check(all(np.isfinite(x) and x > 0 for x in numbers), f"bench line: {line}")
+    _check(line["vs_baseline"] == line["value"] / line["baseline_fps"],
+           "bench: vs_baseline != value / baseline_fps")
+    print(f"bench: tools/bench.py at {q}: {batched_fps:.2f} pairs/s at B={q['n_batch']}, "
+          f"latency {latency_fps:.2f} pairs/s, BA {ba[0]:.1f} windows/s, stages (ms) "
+          f"{ {k: round(v, 3) for k, v in stages.items()} }; launches per batched call "
+          f"{per_call}; baselines in this process, once: cv2 {base['fps']:.2f} pairs/s "
+          f"(cv2 {cv2.__version__}, n_cloud {n_cloud}), native BA "
+          f"{base_ba['windows_per_s']:.1f} windows/s ({iters} LM iterations); the line "
+          f"has every key, vs_baseline {line['vs_baseline']:.4f}")
+    return line, per_call
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -2929,7 +3027,7 @@ def main() -> int:
         phase_s[phase] = round(time.perf_counter() - t0, 1)
         return out
 
-    name, _ = phase_device()
+    name, smi = phase_device()
     dev = torch.device("cuda", 0)
     runtime_build = timed("build", phase_build)
     f0, f1, gt = corridor_pair(dev)
@@ -2961,12 +3059,14 @@ def main() -> int:
     entry_points, launches_cli = timed("entry_points", phase_entry_points, dev,
                                        runtime_build, seq_frames, seq_gt, stereo_frames_kept)
     del seq_frames, stereo_frames_kept
+    bench_line, launches_bench = timed("bench", phase_bench, f0, f1, cfg, smi)
     print(f"phases (wall s): {phase_s}")
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"batched": batched, "ba": ba_report, "orb": orb,
                       "sequence": sequence, "stereo": stereo, "loop": loop,
                       "five_point": five, "global": glob, "multi": multi,
-                      "entry_points": entry_points, "phase_s": phase_s}))
+                      "entry_points": entry_points, "bench": bench_line,
+                      "phase_s": phase_s}))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "launches_per_orb_step": orb["launches_per_step"][k],
@@ -2979,7 +3079,8 @@ def main() -> int:
          "launches_multi_rank": multi_kernels["launches"][k],
          "launches_multi_rank_run": multi_kernels["run"][k],
          "launches_multi_rank_retry": multi_kernels["retry"][k],
-         "launches_cli": launches_cli[k], **report[k]}
+         "launches_cli": launches_cli[k], "launches_bench": launches_bench[k],
+         **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

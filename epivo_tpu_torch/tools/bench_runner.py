@@ -38,18 +38,11 @@ H, W = 376, 1241
 
 
 def bench_config():
-    """The bench configuration (``bench.py``'s ``_config``)."""
-    from epivo_tpu_torch.geometry.camera import Pinhole
-    from epivo_tpu_torch.pipeline.config import (FrontendConfig, LMConfig, RansacConfig,
-                                                 VOConfig)
+    """The bench configuration (``tools/bench.py``'s ``_config``, which is
+    ``bench.py``'s)."""
+    from epivo_tpu_torch.tools.bench import _config
 
-    return VOConfig(
-        camera=Pinhole(fx=718.856, fy=718.856, cx=W / 2.0, cy=H / 2.0, width=W, height=H),
-        frontend=FrontendConfig(fast_threshold=40.0, max_keypoints=512, klt_window=21,
-                                klt_levels=4, klt_iters=12),
-        ransac=RansacConfig(n_hyp=512, refine_e=True),
-        lm=LMConfig(n_points=48),
-    )
+    return _config()
 
 
 def device_name(dev: torch.device) -> str:

@@ -78,10 +78,33 @@ pair files ``--save-pairs`` asks for:
   --scene-seed``, each on the CPU: E-pose and LM-pose errors and the
   demo's verdict (LM rotation < 0.02, direction < 0.05), per seed.
 
+- ``lmeds-draws``: ``tests/test_opencv_parity.py::test_lmeds_matches_opencv``
+  (its four scenes, 30 % gross outliers, LMedS at 512 hypotheses) in both
+  packages and cv2 at each draw seed: seed 0 is each file's own draw (the
+  JAX file's keys, the port twin's ``torch.Generator(200 + i)``), seed s
+  > 0 draws ``PRNGKey(200 + i + s)`` / ``torch.Generator(200 + i + s)``.
+  Per package: the four rotation errors (arccos of the trace, the test's
+  metric), their mean against the test's bound, and how far the
+  recovered rotations are from orthonormal (max |R R^T - I|). With
+  ``--unit-u0`` the port's ``linalg3.svd3`` divides M v0 by its norm
+  instead of by s0 (the fix ``ROADMAP.md`` C3 describes).
+
     python -m tests.reference_accuracy stereo --frames 60 --seeds 0-3
     python -m tests.reference_accuracy loop --course out-and-back --seeds 0-3
     python -m tests.reference_accuracy kitti-cli --frames 64
     python -m tests.reference_accuracy demo-scenes --seeds 0-3
+    python -m tests.reference_accuracy lmeds-draws --seeds 0,1000,2000,3000 [--unit-u0]
+
+- ``polish-inputs``: ``tests/test_torch_global_ba.py``'s parity check
+  (both packages' ``refine_global`` on the same zetas and pairs: the
+  port's ``run_ba_sequence`` on the 11-frame 180x240 corridor) from the
+  windowed run's zetas and from the ground truth's zetas with the same
+  norms, each unperturbed (seed 0) and with N(0, 1e-7) added (the other
+  seeds): zeta 0's translation direction (z) in each package, the largest
+  rotation and direction differences between them, steps accepted and
+  r_norm.
+
+    python -m tests.reference_accuracy polish-inputs --seeds 0-5
 """
 
 from __future__ import annotations
@@ -564,11 +587,118 @@ def demo_scenes(seeds) -> None:
                           "torch_threads": torch.get_num_threads()}), flush=True)
 
 
+def _unit_u0_svd3(M):
+    """The port's svd3 with u0 = M v0 / |M v0| (``ROADMAP.md`` C3)."""
+    import torch
+
+    from epivo_tpu_torch.geometry import linalg3
+
+    w, V = linalg3.sym_eigh3_desc(torch.einsum("...ji,...jk->...ik", M, M))
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    MV = torch.einsum("...ij,...jk->...ik", M, V)
+    unit = lambda u: u / torch.sqrt(torch.clamp(torch.sum(u * u, -1, keepdim=True), min=1e-20))
+    u0 = unit(MV[..., :, 0])
+    u1 = unit(MV[..., :, 1] - torch.sum(MV[..., :, 1] * u0, -1, keepdim=True) * u0)
+    return torch.stack([u0, u1, torch.linalg.cross(u0, u1)], -1), s, V.transpose(-1, -2)
+
+
+def lmeds_draws(seeds, unit_u0: bool) -> None:
+    import cv2
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from epivo_tpu import ransac as jransac
+    from epivo_tpu.datasets import synthetic
+    from epivo_tpu.geometry import essential as jess
+    from epivo_tpu_torch import ransac as transac
+    from epivo_tpu_torch.geometry import essential as tess, linalg3
+    from tests.test_opencv_parity import _pose_errors
+
+    if unit_u0:
+        linalg3.svd3 = _unit_u0_svd3
+    ortho = lambda R: float(np.abs(R @ R.T - np.eye(3)).max())
+    for s in seeds:
+        rows = {"jax": [], "torch": [], "cv2": []}
+        for i in range(4):
+            k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(200 + i), 4)
+            T = synthetic.random_pose(k1)
+            _, p, p_t = synthetic.gen_points(k2, 128, T, pixel_noise=5e-4)
+            p_t = p_t.at[:38, :2].add(jax.random.normal(k3, (38, 2)) * 0.2)
+            key = k4 if s == 0 else jax.random.PRNGKey(200 + i + s)
+            res = jransac.ransac_essential(key, p, p_t, n_hyp=512, threshold=4e-5,
+                                           method="lmeds")
+            R, t, _ = jess.recover_pose(res.E, p, p_t, mask=res.inliers)
+            rows["jax"].append((*_pose_errors(np.asarray(R), np.asarray(t), T),
+                                ortho(np.asarray(R, np.float64))))
+            pt, ptt = (torch.from_numpy(np.array(x)) for x in (p, p_t))
+            res = transac.ransac_essential(torch.Generator().manual_seed(200 + i + s), pt,
+                                           ptt, n_hyp=512, threshold=4e-5, method="lmeds")
+            R, t, _ = tess.recover_pose(res.E, pt, ptt, mask=res.inliers)
+            rows["torch"].append((*_pose_errors(R.numpy(), t.numpy(), T),
+                                  ortho(R.numpy().astype(np.float64))))
+            p_np, p_t_np = np.asarray(p, np.float64)[:, :2], np.asarray(p_t, np.float64)[:, :2]
+            E_cv, _ = cv2.findEssentialMat(p_np, p_t_np, np.eye(3), method=cv2.LMEDS,
+                                           prob=0.99)
+            _, R_cv, t_cv, _ = cv2.recoverPose(E_cv[:3], p_np, p_t_np, np.eye(3))
+            rows["cv2"].append((*_pose_errors(R_cv, t_cv, T), ortho(R_cv)))
+        c_rot, c_t = np.mean([r[:2] for r in rows["cv2"]], axis=0)
+        bound = (c_rot * 2.0 + np.deg2rad(0.2), c_t * 2.0 + np.deg2rad(1.0))
+        for pkg in ("jax", "torch"):
+            rot, tr = np.mean([r[:2] for r in rows[pkg]], axis=0)
+            print(json.dumps({
+                "command": "lmeds-draws", "seed": s, "package": pkg, "unit_u0": unit_u0,
+                "rot_err": [r[0] for r in rows[pkg]], "mean_rot": float(rot),
+                "mean_dir": float(tr), "bound": [float(b) for b in bound],
+                "within": bool(rot <= bound[0] and tr <= bound[1]),
+                "max_orthonormality_err": max(r[2] for r in rows[pkg])}), flush=True)
+
+
+def polish_inputs(seeds) -> None:
+    from epivo_tpu.datasets import photoreal as jphotoreal
+    from epivo_tpu.pipeline import runners as jrunners
+    from epivo_tpu_torch import convert
+    from epivo_tpu_torch.pipeline import runners as trunners
+    from tests import test_torch_global_ba as gba
+
+    K = np.array([[200.0, 0, gba.W / 2], [0, 200.0, gba.H / 2], [0, 0, 1.0]])
+    frames, gt, _ = jphotoreal.corridor_sequence(gba.F, H=gba.H, W=gba.W, K=K, speed=0.5,
+                                                 seed=4)
+    frames = [np.asarray(f) for f in frames]
+    jcfg0, jcfg1 = gba._ba_configs()
+    res0 = trunners.run_ba_sequence(list(frames), convert.config_from_reference(jcfg0),
+                                    n_frames=gba.F, seed=0, device="cpu")
+    traj = res0.trajectory.astype(np.float64)
+    windowed = np.linalg.inv(traj[1:]) @ traj[:-1]
+    from_gt = np.linalg.inv(gt[1:]) @ gt[:-1]
+    from_gt[:, :3, 3] *= (np.linalg.norm(windowed[:, :3, 3], axis=-1)
+                          / np.linalg.norm(from_gt[:, :3, 3], axis=-1))[:, None]
+    unit = lambda z: np.asarray(z)[:, :3, 3] / np.linalg.norm(np.asarray(z)[:, :3, 3],
+                                                              axis=-1, keepdims=True)
+    for start, zetas in (("windowed", windowed), ("ground truth", from_gt)):
+        zetas = zetas.astype(np.float32)
+        for s in seeds:
+            noise = np.random.default_rng(s).normal(0, 1e-7, zetas.shape).astype(np.float32)
+            z_in = zetas + noise if s else zetas
+            z_j, r_j = jrunners.refine_global(z_in, res0.pair_data, jcfg1)
+            z_t, r_t = trunners.refine_global(z_in, res0.pair_data,
+                                              convert.config_from_reference(jcfg1),
+                                              device="cpu")
+            print(json.dumps({
+                "command": "polish-inputs", "start": start, "seed": s,
+                "zeta0_dir_z": [float(unit(z_j)[0, 2]), float(unit(z_t)[0, 2])],
+                "max_dR": float(np.abs(np.asarray(z_j)[:, :3, :3] - z_t[:, :3, :3]).max()),
+                "max_ddir": float(np.abs(unit(z_j) - unit(z_t)).max()),
+                "n_accepted": [int(r_j.n_accepted), int(r_t.n_accepted)],
+                "r_norm": [float(r_j.r_norm), float(r_t.r_norm)]}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("command", choices=("orb-pose", "five-point", "turn", "sequence",
                                         "back-half", "global", "stereo", "loop",
-                                        "kitti-cli", "demo-scenes"))
+                                        "kitti-cli", "demo-scenes", "lmeds-draws",
+                                        "polish-inputs"))
     ap.add_argument("--seeds", default="0", help="comma list, or a range lo-hi")
     ap.add_argument("--frames", type=int, default=300)
     ap.add_argument("--batch", type=int, default=None,
@@ -580,6 +710,8 @@ def main(argv=None) -> int:
                     help="back-half, global: saved pair files")
     ap.add_argument("--eager", action="store_true",
                     help="five-point: run the step under jax.disable_jit()")
+    ap.add_argument("--unit-u0", action="store_true",
+                    help="lmeds-draws: the port's svd3 with a unit u0 (ROADMAP C3)")
     ap.add_argument("--course", default="out-and-back",
                     choices=("out-and-back", "offset", "two-lap", "drift"), help="loop")
     args = ap.parse_args(argv)
@@ -606,6 +738,10 @@ def main(argv=None) -> int:
         kitti_cli(args.frames, args.batch or 32, args.workers)
     elif args.command == "demo-scenes":
         demo_scenes(seeds)
+    elif args.command == "lmeds-draws":
+        lmeds_draws(seeds, args.unit_u0)
+    elif args.command == "polish-inputs":
+        polish_inputs(seeds)
     else:
         back_half_cmd(args.pairs, args.frames)
     return 0

@@ -5,8 +5,10 @@ port's own runners, on a KITTI tree of PNGs written at small size
 camera at 120x160, focal length 200 px, ``calib.txt`` from its K and rig,
 ``poses/00.txt`` from its ground truth).
 
-- each mode (vo, ba, stereo, gt) through ``main([..., "--device", "cpu"])``:
-  its trajectory bit-equal to the port's runner on the PNGs decoded into
+- each mode (vo, ba, stereo, gt, and ba with ``--global-ba`` or
+  ``--loop-close``) through ``main([..., "--device", "cpu"])``: its
+  trajectory bit-equal to the port's runner (with ``refine_global`` /
+  ``loop.enabled`` for the two ba stages) on the PNGs decoded into
   memory (``runtime.decode_png``; the CLI and the loader add nothing),
   the summary's values those of that run;
 - each mode's artifact files, summary keys and config keys equal to the
@@ -36,8 +38,8 @@ import chip_smoke
 from epivo_tpu_torch import runtime
 from epivo_tpu_torch.datasets import kitti, photoreal
 from epivo_tpu_torch.pipeline import runners
-from epivo_tpu_torch.pipeline.config import (BAConfig, FrontendConfig, LMConfig,
-                                             RansacConfig, VOConfig)
+from epivo_tpu_torch.pipeline.config import (BAConfig, FrontendConfig, GlobalBAConfig,
+                                             LMConfig, LoopConfig, RansacConfig, VOConfig)
 from epivo_tpu_torch.tools import run_kitti
 
 torch.set_num_threads(1)
@@ -98,7 +100,9 @@ def _decoded(root, cam="image_0"):
 
 
 def _in_memory(root, mode):
-    """The mode's runner on the decoded PNGs, configured as the CLI does."""
+    """The mode's runner on the decoded PNGs, configured as the CLI does
+    ("ba+global" / "ba+loop": ba with the global polish / the loop stage)."""
+    mode, _, stage = mode.partition("+")
     seq = kitti.KittiSequence(root, "00")
     cam, gt = seq.intrinsics(), seq.load_poses()
     fe = FrontendConfig(fast_threshold=12.0, max_keypoints=256)
@@ -115,7 +119,9 @@ def _in_memory(root, mode):
             frames, VOConfig(camera=cam, frontend=fe, ransac=rc, lm=LMConfig(n_points=48)),
             gt_poses=gt, device="cpu")
     cfg = BAConfig(camera=cam, frontend=fe, ransac=rc,
-                   lm=LMConfig(n_points=32, revert_r_norm=1e-2))
+                   lm=LMConfig(n_points=32, revert_r_norm=1e-2),
+                   global_ba=GlobalBAConfig(enabled=stage == "global"),
+                   loop=LoopConfig(enabled=stage == "loop"))
     if mode == "ba":
         return runners.run_ba_sequence(frames, cfg, gt_poses=gt, n_frames=F, **kw)
     return runners.run_stereo_ba_sequence(frames, _decoded(root, "image_1"), cfg,
@@ -132,13 +138,18 @@ def _summary(out):
         return json.load(f)
 
 
-@pytest.mark.parametrize("mode", ["vo", "ba", "stereo", "gt"])
+@pytest.mark.parametrize("mode", ["vo", "ba", "stereo", "gt", "ba+global", "ba+loop"])
 def test_cli_matches_runner(tree, tmp_path, mode):
     out = str(tmp_path / "port")
-    res = _quiet(run_kitti.main, ["--root", tree, "--mode", mode, "--out", out,
-                                  "--device", "cpu", *FLAGS])
+    base, _, stage = mode.partition("+")
+    stage_flags = {"": [], "global": ["--global-ba"], "loop": ["--loop-close"]}[stage]
+    res = _quiet(run_kitti.main, ["--root", tree, "--mode", base, "--out", out,
+                                  "--device", "cpu", *stage_flags, *FLAGS])
     mem = _in_memory(tree, mode)
     np.testing.assert_array_equal(res.trajectory, mem.trajectory)
+    if stage:  # the stage ran in both
+        key = {"global": "global_ba_s", "loop": "loop"}[stage]
+        assert key in res.stats and key in mem.stats
     summary = _summary(out)
     assert summary["ate_m"] == mem.ate and summary["rpe_t"] == mem.rpe_t
     assert summary["frames"] == F and summary["config"]["platform"] == "cpu"
