@@ -19,7 +19,12 @@ Phases, each reported on its own line:
    the bench configuration, counting kernel launches, timing the step, the
    detect stage and the KLT stage, checking that fast.detect and klt.track
    make no host sync, and checking the pose against the ground truth and
-   against the plain path;
+   against the plain path; the step's CUDA graph (epivo_tpu_torch/_graphs.py,
+   captured by its first call) against the eager path, from a generator
+   and from injected samples (graph_check below: bit-equal on every field,
+   launches per replay from the accounting and from torch.profiler's
+   kernel names over one replay, capture seconds and memory, eager against
+   graphed ms, the replay's device busy share and top kernels);
 5. degenerate: textureless frames must still give a finite pose;
 6. batched: vo_step_batched on B = 8 copies of the corridor pair (the
    throughput mode): one fast_cand and four klt_level launches per call,
@@ -27,11 +32,13 @@ Phases, each reported on its own line:
    against the ground truth, the kernel path against the plain path and
    lane 0 against a single vo_step with the same samples, a repeat probe,
    pairs/s (tools/bench.py's measure_batched), and fast_cand / klt_level
-   at B = 8 against their plain versions with device time and bound;
+   at B = 8 against their plain versions with device time and bound; the
+   graph check at B = 8 from a generator and from injected samples;
 7. ba: ba_windows on the 512 windows of bench_ba_workload.npz (the bench's
    BA workload): no host sync, the card against the port's CPU path, the
-   same ATen operators at W = 64 and W = 512 (no loop over windows), and
-   windows/s and LM iterations/s (tools/bench.py's measure_ba);
+   same ATen operators at W = 64 and W = 512 on the eager path (no loop over
+   windows), windows/s and LM iterations/s (tools/bench.py's measure_ba),
+   and the graph check at W = 512;
 8. orb: vo_step_orb on the corridor pair (one fast_cand and one extract
    launch per step), vo_step_orb_batched at B = 8 (no host sync, bit-equal
    on repeat, every lane against the ground truth, kernel path against
@@ -73,7 +80,8 @@ Phases, each reported on its own line:
    spread, the kernel path against the plain path; vo_step_batched at
    B = 8 with no host sync, pairs/s and peak device memory; five_point on
    the card against the port's CPU path on the same 512 samples (sets of
-   candidates up to sign); and the global-BA polish on phase 9's two
+   candidates up to sign); the graph check of the 5-point step at B = 8
+   and of one LMedS step at B = 1; and the global-BA polish on phase 9's two
    no-GT runs over their own zetas and pairs: the paired Sim(3) ATE delta
    against the JAX package's CPU spread, kept step norms, accepted steps,
    the card against the port's CPU and a bit-equal repeat;
@@ -112,14 +120,17 @@ Phases, each reported on its own line:
    The bench itself, with the baselines pinned to one core, runs in its
    own call: python3 -m epivo_tpu_torch.tools.bench.
 
-Before the last two lines, one JSON object holds the batched, BA, ORB,
+The step and BA calls of every phase run graphed (graph=None on the
+card), so phases 9, 10, 14 and 15 time and count replays.
+
+Before the last two lines, one JSON object holds the slice's graph checks, the batched, BA, ORB,
 sequence, stereo, loop, five-point, global, multi-device, entry-point and
 bench phases' numbers; the line before the last is a JSON object with one entry
 per kernel (launches per KLT step, per ORB step, per pyramid ORB step, in
 the sequence run, in the stereo run, in the loop run, in its loop stage,
 per loop-stage call, per 5-point step, per rank and call of the 2-rank
-extraction, in the KITTI CLI's ba run, and per batched call of the
-bench); the last line is {"ok": true,
+extraction, in the KITTI CLI's ba run, per batched call of the bench and
+per replay of the B = 8 step's graph); the last line is {"ok": true,
 "device": {...}}. Any failed check raises and exits non-zero without that
 line. Imports nothing of JAX.
 """
@@ -742,6 +753,115 @@ def timed_in_turns(fns: dict, turns: int = 2, **kw) -> dict:
     return {k: float(np.mean(v)) for k, v in times.items()}
 
 
+# The kernel each launch counter counts, by its name in a profile.
+KERNEL_NAMES = {"fast": "fast_score_kernel", "fast_cand": "fast_candidates_kernel",
+                "klt_level": "track_level_kernel", "extract": "extract_windows_kernel",
+                "lk": "lk_iterate_kernel"}
+NO_LAUNCHES = {k: 0 for k in KERNEL_NAMES}
+GRAPH_TURNS = 2  # host-clock calls of each path per turn (eager, graph, graph, eager)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a NaN equals a NaN of the same payload)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(as_int), b.contiguous().view(as_int)
+    return torch.equal(a, b)
+
+
+def replay_profile(fn, top: int = 6) -> dict:
+    """One call of fn() under torch.profiler, after one warm-up step of the
+    profiler (a profile's first step can lose its first device record):
+    each counted kernel's launches by name, the device activities and
+    their summed device time (one stream: they do not overlap), the
+    call's host wall time under the profiler, and the top kernels by
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.append(p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    _check(len(kept) == 1, "the profiler recorded no step")
+    kern = [e for e in kept[0] if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]  # the step's own range
+    names = {k: sum(e.count for e in kern if name in e.key) for k, name in KERNEL_NAMES.items()}
+    ranked = sorted(kern, key=lambda e: -e.device_time_total)[:top]
+    return dict(kernels=names, device_activities=sum(e.count for e in kern),
+                device_ms=sum(e.device_time_total for e in kern) / 1e3, wall_ms=wall_ms,
+                top=[[e.key[:60], e.count, round(e.device_time_total / 1e3, 4)] for e in ranked])
+
+
+def graph_check(what: str, call, per_call: dict) -> dict:
+    """``call(graph)`` (every call from the same generator seed, or the
+    same samples) captured as a CUDA graph on its first call
+    (epivo_tpu_torch/_graphs.py) and held to the eager path on the same
+    inputs: the first call (the eager run on the capture stream) and a
+    replay bit-equal to graph=False on every field; ``per_call`` launches
+    per replay from the accounting, and the same counts of kernel names in
+    torch.profiler over one replay; capture seconds, the capture's pool
+    and max_memory_allocated; eager against graphed ms per call (host
+    clock, synchronised, in turns); the replay's device busy share and top
+    kernels."""
+    from epivo_tpu_torch import _graphs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = call(None)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    entry = next(reversed(_graphs.CACHE.entries.values()))
+    _check(entry.replays == 0, f"graph: {what}: its first call captured no graph")
+    eager = call(False)
+    replay = call(None)
+    torch.cuda.synchronize()
+    _check(entry.replays == 1, f"graph: {what}: the second call did not replay")
+    for name, e, a, b in zip(eager._fields, eager, first, replay):
+        _check(bits_equal(a, e), f"graph: {what}: the first call's {name} differs from eager")
+        _check(bits_equal(b, e), f"graph: {what}: the replay's {name} differs from eager")
+    reset_launches()
+    call(None)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    _check(launches == per_call, f"graph: {what}: launches per replay {launches} != "
+           f"{per_call}")
+    prof = replay_profile(lambda: call(None))
+    _check(prof["kernels"] == per_call, f"graph: {what}: the profile of one replay shows "
+           f"{prof['kernels']}, not {per_call}")
+    _check(prof["device_activities"] > 0, f"graph: {what}: the profiler saw no device work")
+    times = {"eager": [], "graph": []}
+    for turn in ("eager", "graph", "graph", "eager"):
+        times[turn] += [host_ms(lambda: call(False if turn == "eager" else None))
+                        for _ in range(GRAPH_TURNS)]
+    ms_e, ms_g = float(np.median(times["eager"])), float(np.median(times["graph"]))
+    busy = prof["device_ms"] / ms_g
+    print(f"graph: {what}: capture {entry.capture_s:.2f} s (first call {first_s:.2f} s "
+          f"with its eager run), pool {entry.pool_bytes / 1e9:.3f} GB, max_memory_allocated "
+          f"{peak_gb:.3f} GB; replay bit-equal to eager on all {len(eager)} fields; "
+          f"launches per replay {launches} (profiler names agree); eager {ms_e:.2f} ms, "
+          f"graphed {ms_g:.2f} ms per call ({ms_e / ms_g:.1f}x; medians of "
+          f"{2 * GRAPH_TURNS}, in turns); one replay: {prof['device_activities']} device "
+          f"activities, device busy {prof['device_ms']:.2f} ms, {busy:.1%} of the graphed "
+          f"call ({prof['wall_ms']:.2f} ms under the profiler), top {prof['top']}")
+    return dict(capture_s=entry.capture_s, first_call_s=first_s, pool_gb=entry.pool_bytes / 1e9,
+                max_memory_allocated_gb=peak_gb, eager_ms=ms_e, graph_ms=ms_g,
+                launches=launches, busy_share=busy, profile=prof)
+
+
 def phase_kernels(f0, f1, cfg) -> dict:
     """Each kernel vs its plain version at the main path's shapes, with the
     wrapper's time, the kernel's device time, the bound and the plain and
@@ -946,7 +1066,13 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
         torch.cuda.synchronize()
         return out
 
-    first = step()  # warm-up: allocator, cuBLAS handles
+    per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
+                "lk": 0}
+    # The step's CUDA graph (captured by its first call) against eager.
+    graphs = {"generator": graph_check(
+        f"vo_step B=1 {H}x{W}, generator", lambda graph: vo.vo_step(
+            f0, f1, gen(), cfg, graph=graph), per_step)}
+    first = step()  # a replay
 
     n_steps = 5
     reset_launches()
@@ -956,8 +1082,6 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
         results.append(step())
         times.append((time.perf_counter() - t0) * 1e3)
     launches = launches_now()
-    per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
-                "lk": 0}
     _check(launches == {k: v * n_steps for k, v in per_step.items()},
            f"launch counts {launches} != {per_step} per step x {n_steps}")
     for r in results:  # repeat probe: same seed, same answer
@@ -1032,6 +1156,9 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
     # Kernel path vs plain path on the card, with the same injected samples.
     samples = ransac._sample_indices(gen(), cfg.ransac.hypotheses(),
                                      fc.max_keypoints, flow.status, device=dev)
+    graphs["samples"] = graph_check(
+        "vo_step B=1, injected samples", lambda graph: vo.vo_step(
+            f0, f1, None, cfg, ransac_samples=samples, graph=graph), per_step)
     r_k = step(ransac_samples=samples)
     t0 = time.perf_counter()
     r_p = step(ransac_samples=samples, use_kernel=False)
@@ -1043,7 +1170,7 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
           f"dir={d_err:.3g} n_tracked {int(r_k.n_tracked)}/{int(r_p.n_tracked)} "
           f"n_inliers {int(r_k.n_inliers)}/{int(r_p.n_inliers)}; "
           f"plain step {plain_step_ms:.2f} ms")
-    return launches
+    return launches, graphs
 
 
 def phase_degenerate(dev) -> None:
@@ -1075,15 +1202,17 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     img1 = f1[None].expand(n_pairs, -1, -1).contiguous()
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
     batched = lambda **kw: vo.vo_step_batched(img0, img1, gen(), cfg, **kw)
+    per_call = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
+                "lk": 0}
+    graphs = {"generator": graph_check(f"vo_step_batched B={n_pairs}, generator",
+                                       lambda graph: batched(graph=graph), per_call)}
 
-    first = batched()  # warm-up
+    first = batched()  # a replay
     torch.cuda.synchronize()
     reset_launches()
     res = no_sync(batched)
     torch.cuda.synchronize()
     launches = launches_now()
-    per_call = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
-                "lk": 0}
     _check(launches == per_call,
            f"batched launch counts {launches} != {per_call} per call")
     _check(torch.equal(res.T, first.T) and torch.equal(res.n_inliers, first.n_inliers),
@@ -1103,6 +1232,9 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
                      levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig)
     samples = ransac._sample_indices(gen(), cfg.ransac.hypotheses(), fc.max_keypoints,
                                      flow.status, device=dev, lead=(n_pairs,))
+    graphs["samples"] = graph_check(
+        f"vo_step_batched B={n_pairs}, injected samples",
+        lambda graph: batched(ransac_samples=samples, graph=graph), per_call)
     r_k = batched(ransac_samples=samples)
     r_p = batched(ransac_samples=samples, use_kernel=False)
     one = vo.vo_step(f0, f1, None, cfg, ransac_samples=samples[0])
@@ -1140,7 +1272,8 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
              for S, (src, tgt, pts, guess) in ((46, levels[0]), (34, levels[-1]))}
     return dict(
         launches=launches, pairs_s=pairs_s, ms_per_call=ms_b, rep_spread=spread,
-        fast_cand=cand_report(img0, FAST_T, f"batched: B={n_pairs}"), klt_level=level)
+        fast_cand=cand_report(img0, FAST_T, f"batched: B={n_pairs}"), klt_level=level,
+        graph=graphs)
 
 
 def cand_report(imgs, thr: float, what: str) -> dict:
@@ -1282,11 +1415,14 @@ def phase_ba(dev) -> dict:
     gpu = {k: v.to(dev) for k, v in cpu.items()}
     n_win = cpu["T0s"].shape[0]
 
-    def run(d, n=None):
+    def run(d, n=None, graph=None):
         return ba.ba_windows(d["T0s"][:n], spec, d["p"][:n], d["p_t"][:n],
-                             wreps=d["wreps"][:n], pmask=d["pmask"][:n], config=cfg)
+                             wreps=d["wreps"][:n], pmask=d["pmask"][:n], config=cfg,
+                             graph=graph)
 
-    run(gpu)  # warm-up
+    graph = graph_check(f"ba_windows W={n_win}", lambda graph: run(gpu, graph=graph),
+                        NO_LAUNCHES)
+    run(gpu)  # a replay
     out = no_sync(lambda: run(gpu))
     torch.cuda.synchronize()
     _check(out.T_opt.shape == (n_win, 2, 4, 4) and bool(torch.isfinite(out.T_opt).all()),
@@ -1339,9 +1475,10 @@ def phase_ba(dev) -> dict:
 
     # No loop over windows: the same operators at W = 64 and all windows,
     # and as many device activities up to cuBLAS's choice of GEMM / GEMV
-    # kernels by shape (and a few between repeats of one call).
-    ops_small, dev_small, *_ = work_counts(lambda: run(gpu, 64))
-    ops_all, dev_all, *_ = work_counts(lambda: run(gpu))
+    # kernels by shape (and a few between repeats of one call). Eager: a
+    # replay issues no operator per LM step.
+    ops_small, dev_small, *_ = work_counts(lambda: run(gpu, 64, graph=False))
+    ops_all, dev_all, *_ = work_counts(lambda: run(gpu, graph=False))
     n_small, n_all = sum(ops_small.values()), sum(ops_all.values())
     diff = {k: (ops_small.get(k, 0), ops_all.get(k, 0))
             for k in set(ops_small) | set(ops_all) if ops_small.get(k, 0) != ops_all.get(k, 0)}
@@ -1358,7 +1495,7 @@ def phase_ba(dev) -> dict:
           f"synchronised)")
     return dict(windows_s=win_s, iters_s=iters_s, ms_per_call=per_call, rep_spread=spread,
                 operators=n_all, device_activities=dev_all, within=int(within.sum()),
-                within_control=int(within_ctl.sum()))
+                within_control=int(within_ctl.sum()), graph=graph)
 
 
 def orb_config(cfg, pyramid: bool = False):
@@ -2279,6 +2416,13 @@ def phase_five_point(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     img0 = (f0[None] + eps).contiguous()
     img1 = f1[None].expand(n_pairs, -1, -1).contiguous()
     batched = lambda: vo.vo_step_batched(img0, img1, gen(), cfg5)
+    graphs = {"5pt": graph_check(
+        f"vo_step_batched 5pt B={n_pairs}", lambda graph: vo.vo_step_batched(
+            img0, img1, gen(), cfg5, graph=graph), per_step)}
+    cfg_lmeds = dataclasses.replace(cfg, ransac=dataclasses.replace(cfg.ransac,
+                                                                     method="lmeds"))
+    graphs["lmeds"] = graph_check("vo_step B=1 LMedS", lambda graph: vo.vo_step(
+        f0, f1, gen(), cfg_lmeds, graph=graph), per_step)
     first_b = batched()
     torch.cuda.synchronize()
     reset_launches()
@@ -2315,7 +2459,7 @@ def phase_five_point(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
                 batched=dict(pairs_s=n_pairs / ms_b * 1e3, single_pairs_s=1e3 / ms_1,
                              ms_per_call=ms_b, lanes_max=[r_max, d_max],
                              lanes_median=[r_med, d_med]),
-                max_memory_allocated_gb={"B1": mem1, f"B{n_pairs}": memb})
+                max_memory_allocated_gb={"B1": mem1, f"B{n_pairs}": memb}, graph=graphs)
 
 
 def global_card_vs_cpu(seed: int, res, dev) -> dict:
@@ -3033,7 +3177,7 @@ def main() -> int:
     f0, f1, gt = corridor_pair(dev)
     cfg = bench_config()
     report = timed("kernels", phase_kernels, f0, f1, cfg)
-    launches = timed("slice", phase_slice, f0, f1, gt, cfg)
+    launches, slice_graphs = timed("slice", phase_slice, f0, f1, gt, cfg)
     timed("degenerate", phase_degenerate, dev)
     batched = timed("batched", phase_batched, f0, f1, gt, cfg)
     ba_report = timed("ba", phase_ba, dev)
@@ -3060,9 +3204,16 @@ def main() -> int:
                                        runtime_build, seq_frames, seq_gt, stereo_frames_kept)
     del seq_frames, stereo_frames_kept
     bench_line, launches_bench = timed("bench", phase_bench, f0, f1, cfg, smi)
+    from epivo_tpu_torch import _graphs
+
+    print("graph cache (least recently used first): " + "; ".join(
+        f"{key[0].__name__} {[None if a is None else list(a[0]) for a in key[2]]} "
+        f"replays {e.replays}, capture {e.capture_s:.2f} s, pool {e.pool_bytes / 1e9:.3f} GB"
+        for key, e in _graphs.CACHE.entries.items()))
     print(f"phases (wall s): {phase_s}")
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"batched": batched, "ba": ba_report, "orb": orb,
+    print(json.dumps({"slice_graph": slice_graphs, "batched": batched, "ba": ba_report,
+                      "orb": orb,
                       "sequence": sequence, "stereo": stereo, "loop": loop,
                       "five_point": five, "global": glob, "multi": multi,
                       "entry_points": entry_points, "bench": bench_line,
@@ -3080,6 +3231,7 @@ def main() -> int:
          "launches_multi_rank_run": multi_kernels["run"][k],
          "launches_multi_rank_retry": multi_kernels["retry"][k],
          "launches_cli": launches_cli[k], "launches_bench": launches_bench[k],
+         "launches_per_replay": batched["graph"]["generator"]["launches"][k],
          **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]

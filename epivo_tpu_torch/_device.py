@@ -18,14 +18,37 @@ def set_f32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def constant(data, dtype: torch.dtype, device) -> torch.Tensor:
-    """A small constant (nested lists or a numpy array) on ``device``.
+# Every constant built by :func:`constant`, by (value, dtype, device). Never
+# evicted: a captured CUDA graph (``_graphs.py``) reads a constant by its
+# address on every replay, so the tensor must outlive every graph.
+_CONSTANTS: dict = {}
+
+
+def to_device(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host data of one call (nested lists or a numpy array) on ``device``.
 
     ``torch.tensor(data, device="cuda")`` copies with a stream sync; this
     builds the tensor on the host and copies it with ``non_blocking=True``,
-    so the batched entry points stay free of host syncs.
+    so the batched entry points stay free of host syncs. Built anew on
+    every call: for values that change between calls (a batch's gather
+    indices). Fixed values go through :func:`constant`.
     """
     return torch.as_tensor(data, dtype=dtype).to(device, non_blocking=True)
+
+
+def constant(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """A fixed constant (nested lists or a numpy array) on ``device``,
+    built once per (value, dtype, device) by :func:`to_device` and shared
+    by every later call: a captured CUDA graph may not copy from pageable
+    host memory, and a replay must find the constant where the capture
+    read it. Callers never write into the result.
+    """
+    arr = np.asarray(data)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, torch.device(device or "cpu"))
+    out = _CONSTANTS.get(key)
+    if out is None:
+        out = _CONSTANTS[key] = to_device(data, dtype, device)
+    return out
 
 
 def upload(frames: np.ndarray, dev: torch.device) -> torch.Tensor:

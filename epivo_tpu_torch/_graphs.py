@@ -1,0 +1,230 @@
+"""Compile-once dispatch on the card: each (function, static configuration,
+input shapes) of a main-path entry point is captured as a CUDA graph on
+its first call and replayed on every later call.
+
+This is the port's counterpart of the reference's ``jax.jit`` under
+``functools.lru_cache(maxsize=16)`` (``epivo_tpu/pipeline/runners.py:52,317``):
+XLA runs a step as one program, where eager PyTorch issues every operator
+from the host (some 27,000 kernels for one KLT step). A replay issues the
+whole step with one host call.
+
+:func:`run` ``(fn, static, *args)`` calls ``fn(static, *args)``. ``static``
+is hashable (the frozen config dataclasses); each argument is a tensor,
+``None`` or a :class:`Fill`. The cache key is ``fn``, ``static``, and each
+argument's shape, dtype and device (``None`` where an optional input is
+absent); a new shape is a new key, as a new shape is a new jit.
+
+- First call for a key: ``fn`` runs eagerly on the capture stream, and its
+  result is the call's result. That run also builds the lazy state a
+  capture may not build (cuBLAS handles and workspaces, the kernel library
+  of ``_kernels.lib()``, allocator blocks). Then ``fn`` is captured with
+  ``torch.cuda.graph`` on static copies of the inputs, into static outputs
+  in a private memory pool of its own (an entry's replays never share a
+  pool with another's).
+- Later calls copy the inputs into the static buffers, replay, and return
+  clones of the outputs: callers dispatch ahead and keep earlier results,
+  and JAX returns fresh arrays too.
+- The least recently used entry goes when a 17th key arrives.
+
+The kernels' launch counters (``frontend/fast.py``, ``frontend/klt.py``)
+are Python integers that a wrapper bumps when its Python runs, which a
+replay never does. So the counts a capture makes are taken back and kept
+on the entry, and every replay adds them: the counts stay the launches
+the card ran.
+
+Nothing falls back: an error of a capture or a replay propagates.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import importlib
+import time
+from typing import Any, Callable, Hashable, NamedTuple
+
+import torch
+
+MAX_ENTRIES = 16  # as the reference's lru_cache(maxsize=16)
+
+# The kernels' launch counters, (module, attribute).
+COUNTERS = (
+    ("epivo_tpu_torch.frontend.fast", "KERNEL_LAUNCHES"),
+    ("epivo_tpu_torch.frontend.fast", "CAND_LAUNCHES"),
+    ("epivo_tpu_torch.frontend.klt", "EXTRACT_LAUNCHES"),
+    ("epivo_tpu_torch.frontend.klt", "LK_LAUNCHES"),
+    ("epivo_tpu_torch.frontend.klt", "LEVEL_LAUNCHES"),
+)
+
+
+class Fill(NamedTuple):
+    """An input that the call writes into the entry's static buffer itself:
+    ``fill(out)`` writes a tensor of ``shape`` and ``dtype`` on ``device``
+    (the RANSAC uniforms, drawn from their generator before each replay)."""
+
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
+    fill: Callable[[torch.Tensor], Any]
+
+
+def wanted(x: torch.Tensor, graph: bool | None, blocked: str | None = None,
+           default: bool = True) -> bool:
+    """Resolve an entry point's ``graph`` switch, as ``_device.kernel_wanted``
+    resolves ``use_kernel``.
+
+    ``None`` graphs a CUDA tensor unless ``blocked`` (why this call cannot
+    be captured, e.g. "a hyp_mesh") or not ``default`` (a path that runs
+    eagerly unless asked, e.g. the plain versions of the kernels).
+    ``True`` on a CPU tensor or with ``blocked`` raises: nothing falls
+    back. ``False`` runs eagerly: the oracle and the debugging path.
+    """
+    if graph is None:
+        return x.is_cuda and blocked is None and default
+    if graph:
+        if blocked is not None:
+            raise ValueError(f"graph=True with {blocked}: this path runs eagerly "
+                             "(ROADMAP.md B, 'Graph slices left', 5: the mesh paths)")
+        if not x.is_cuda:
+            raise ValueError(f"graph=True needs CUDA tensors, got one on {x.device}: "
+                             "CUDA graphs exist only on the card")
+    return bool(graph)
+
+
+def launches() -> dict:
+    """Every kernel launch counter, {(module, attribute): count}."""
+    return {(m, a): getattr(importlib.import_module(m), a) for m, a in COUNTERS}
+
+
+def _add_launches(delta: dict, sign: int = 1) -> None:
+    for (m, a), n in delta.items():
+        if n:
+            mod = importlib.import_module(m)
+            setattr(mod, a, getattr(mod, a) + sign * n)
+
+
+def _map(fn, out):
+    """``fn`` on every tensor of an output: a tensor, or a (named) tuple of
+    tensors and ``None``."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, tuple):
+        items = [None if o is None else _map(fn, o) for o in out]
+        return type(out)(*items) if hasattr(out, "_fields") else type(out)(items)
+    raise TypeError(f"a graphed function returns tensors or tuples of them, "
+                    f"got {type(out).__name__}")
+
+
+def _spec(a):
+    if a is None:
+        return None
+    if isinstance(a, Fill):
+        return tuple(a.shape), a.dtype, torch.device(a.device)
+    return tuple(a.shape), a.dtype, a.device
+
+
+@dataclasses.dataclass
+class Entry:
+    """One captured (function, static, input specs)."""
+
+    graph: Any  # replay() runs the captured work
+    inputs: list  # static input buffers (None where the argument is None)
+    outputs: Any  # static outputs, in fn's structure
+    launches: dict  # counter -> launches per replay
+    capture_s: float  # host seconds of the capture and instantiation
+    pool_bytes: int  # device memory the capture reserved (its private pool)
+    replays: int = 0
+
+
+class CudaCapture:
+    """Warm-up and capture on the card, on one side stream per device."""
+
+    def __init__(self):
+        self._streams: dict = {}
+
+    def _stream(self, device: torch.device) -> torch.cuda.Stream:
+        s = self._streams.get(device)
+        if s is None:
+            s = self._streams[device] = torch.cuda.Stream(device=device)
+        return s
+
+    def warmup(self, fn, static, args, device):
+        """fn(static, *args) eagerly on the capture stream: the first call's
+        result, and the lazy state (handles, workspaces, the kernel library)
+        built on the stream the capture will use."""
+        s, cur = self._stream(device), torch.cuda.current_stream(device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out = fn(static, *args)
+        cur.wait_stream(s)
+        # Allocated on s, read on the caller's stream from now on.
+        _map(lambda t: t.record_stream(cur), out)
+        return out
+
+    def capture(self, fn, static, inputs, device):
+        """(graph, static outputs, bytes reserved by the capture)."""
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream(device)):
+            out = fn(static, *inputs)
+        return graph, out, torch.cuda.memory_reserved(device) - before
+
+
+class GraphCache:
+    """An LRU of :class:`Entry` by key; :func:`run` is its call."""
+
+    def __init__(self, maxsize: int = MAX_ENTRIES, capturer=None):
+        self.maxsize = maxsize
+        self.capturer = capturer if capturer is not None else CudaCapture()
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def __call__(self, fn: Callable, static: Hashable, *args):
+        key = (fn, static, tuple(_spec(a) for a in args))
+        entry = self.entries.get(key)
+        if entry is None:
+            return self._first(key, fn, static, args)
+        self.entries.move_to_end(key)
+        for buf, a in zip(entry.inputs, args):
+            if isinstance(a, Fill):
+                a.fill(buf)
+            elif a is not None:
+                buf.copy_(a)
+        entry.graph.replay()
+        entry.replays += 1
+        _add_launches(entry.launches)
+        return _map(torch.clone, entry.outputs)
+
+    def _first(self, key, fn, static, args):
+        device = next(torch.device(s[2]) for s in key[2] if s is not None)
+        eager_args = []
+        for a in args:
+            if isinstance(a, Fill):
+                buf = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+                a.fill(buf)
+                a = buf
+            eager_args.append(a)
+        out = self.capturer.warmup(fn, static, eager_args, device)
+        inputs = [a if isinstance(f, Fill) or a is None
+                  else torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
+                  for f, a in zip(args, eager_args)]
+        before = launches()
+        t0 = time.perf_counter()
+        graph, outputs, pool = self.capturer.capture(fn, static, inputs, device)
+        capture_s = time.perf_counter() - t0
+        delta = {k: v - before[k] for k, v in launches().items()}
+        _add_launches(delta, -1)  # the capture launched nothing
+        self.entries[key] = Entry(graph, inputs, outputs, delta, capture_s, pool)
+        while len(self.entries) > self.maxsize:
+            self.entries.popitem(last=False)
+        return out
+
+
+CACHE = GraphCache()
+
+
+def run(fn: Callable, static: Hashable, *args):
+    """``fn(static, *args)`` through the process's graph cache (see the
+    module docstring)."""
+    return CACHE(fn, static, *args)

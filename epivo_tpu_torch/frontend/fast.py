@@ -64,8 +64,9 @@ def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
     ring = torch.stack([torch.roll(img, (-dy, -dx), dims=(-2, -1))
                         for dy, dx in CIRCLE])  # [16, ..., H, W]
     diff = ring - img[None]
-    idx = (torch.arange(16)[:, None] + torch.arange(ARC)[None, :]) % 16  # [16, 9]
-    arc_vals = diff[idx.to(img.device)]  # [16, 9, ..., H, W]
+    idx = (torch.arange(16, device=img.device)[:, None]
+           + torch.arange(ARC, device=img.device)[None, :]) % 16  # [16, 9]
+    arc_vals = diff[idx]  # [16, 9, ..., H, W]
     arc_min = torch.amin(arc_vals, dim=1)
     arc_max = torch.amax(arc_vals, dim=1)
     bright = torch.amax(arc_min, dim=0)
@@ -226,6 +227,15 @@ def top_k_keypoints(score: torch.Tensor, k: int,
     xs = (idx % W).to(score.dtype)
     return Keypoints(xy=torch.stack([xs, ys], dim=-1), score=vals,
                      valid=vals > 0.0)
+
+
+def n_keypoints(H: int, W: int, max_keypoints: int) -> int:
+    """The K of :func:`detect`'s result on [..., H, W] images: the budget,
+    or fewer where the map (or the first stage's candidates) holds fewer
+    entries."""
+    if H * W >= TWO_STAGE_MIN_PIXELS:
+        return min(max_keypoints, (_padded(H) // BLOCK) * (_padded(W) // BLOCK) * CANDIDATES)
+    return min(max_keypoints, H * W)
 
 
 def detect(img: torch.Tensor, threshold: float = 40.0, max_keypoints: int = 1024,

@@ -110,7 +110,10 @@ def residual_jacobian(
     """
     dtype, device = Tl.dtype, Tl.device
     G = se3.generators(dtype, device)  # [6, 4, 4]
-    rev = torch.as_tensor(reverse, device=device)
+    # A Python bool becomes a tensor by a device fill, not a host copy (a
+    # captured graph may not copy from the host).
+    rev = (reverse.to(device) if isinstance(reverse, torch.Tensor)
+           else torch.full((), bool(reverse), device=device))
     sign = torch.where(rev, -1.0, 1.0).to(dtype)
 
     T0 = se3.mul44(Tl, Tr)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from epivo_tpu_torch._device import constant, to_device
 from epivo_tpu_torch.geometry import epipolar, se3
 from epivo_tpu_torch.optim import smallchol
 
@@ -120,6 +121,16 @@ def build_system(
     return r, J
 
 
+def _on(x, dtype: torch.dtype, device, fixed: bool = True) -> torch.Tensor:
+    """An argument as a tensor of ``dtype`` on ``device``: a tensor is
+    moved (a no-op where it already lies there); host data is built once
+    as a device constant where it is ``fixed`` (the window structure),
+    else on every call (weights)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype, non_blocking=True)
+    return (constant if fixed else to_device)(x, dtype, device)
+
+
 def solve_batched(
     T0s: torch.Tensor,
     reps: torch.Tensor,
@@ -145,11 +156,11 @@ def solve_batched(
     D = Z * 6
     R_ = reps.shape[0]
     dtype, device = T0s.dtype, T0s.device
-    reps = torch.as_tensor(reps).to(device=device, dtype=torch.int64, non_blocking=True)
+    reps = _on(reps, torch.int64, device)
     wreps = (torch.ones((W, R_), dtype=dtype, device=device) if wreps is None
-             else torch.as_tensor(wreps).to(device=device, dtype=dtype, non_blocking=True))
+             else _on(wreps, dtype, device, fixed=False))
     zmask = (torch.ones(Z, dtype=torch.bool, device=device) if zeta_mask is None
-             else torch.as_tensor(zeta_mask).to(device, non_blocking=True))
+             else _on(zeta_mask, torch.bool, device))
     eye = torch.eye(D, dtype=dtype, device=device)
 
     def energy(Ts):

@@ -53,7 +53,9 @@ def distributed_ba_step(mesh, spec: ba.WindowSpec, config: BAConfig):
         W = T0s.shape[0]
         T0l, pl, ptl, wl, ml = (mesh_mod.shard_rows(x, mesh, "win")
                                 for x in (T0s, p, p_t, wreps, pmask))
-        out = ba.ba_windows(T0l, spec, pl, ptl, wreps=wl, pmask=ml, config=config)
+        # Eager: the mesh paths are not captured (ROADMAP.md B, graph slices).
+        out = ba.ba_windows(T0l, spec, pl, ptl, wreps=wl, pmask=ml, config=config,
+                            graph=False)
         Wl = out.r_norm.shape[0]
         rows = torch.cat([out.T_opt.reshape(Wl, -1), out.r_norm[:, None],
                           out.reverted.to(out.r_norm.dtype)[:, None],

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from epivo_tpu_torch._device import constant
+from epivo_tpu_torch._device import to_device
 from epivo_tpu_torch.geometry import epipolar, se3
 from epivo_tpu_torch.parallel import mesh as mesh_mod
 
@@ -257,11 +257,11 @@ def global_ba_solve(
     psum = lambda x: mesh_mod.psum(x, mesh, "win")
     zidx_np, zmask_np = _span_data(reps_np, max_span)
     inc_np, inc_ok_np = _incidence(zidx_np, zmask_np, Z)
-    reps_t = constant(reps_np.astype(np.int64), torch.int64, dev)
-    zidx = constant(zidx_np.astype(np.int64), torch.int64, dev)
-    zmask = constant(zmask_np, torch.bool, dev)
-    inc = constant(inc_np, torch.int64, dev)
-    inc_ok = constant(inc_ok_np, torch.bool, dev)
+    reps_t = to_device(reps_np.astype(np.int64), torch.int64, dev)
+    zidx = to_device(zidx_np.astype(np.int64), torch.int64, dev)
+    zmask = to_device(zmask_np, torch.bool, dev)
+    inc = to_device(inc_np, torch.int64, dev)
+    inc_ok = to_device(inc_ok_np, torch.bool, dev)
 
     def energy(Ts):
         T0r = _compose(prefix_band(Ts, max_span), reps_t)

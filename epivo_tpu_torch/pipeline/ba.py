@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from epivo_tpu_torch import _graphs
+from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.geometry import epipolar, se3
 from epivo_tpu_torch.optim import lm
 from epivo_tpu_torch.pipeline.config import BAConfig
@@ -90,6 +92,28 @@ class BAWindowsResult(NamedTuple):
     n_accepted: torch.Tensor  # [W] int32 LM accepted-step counts
 
 
+def _solve(static, T0s, p, p_t, wreps, pmask) -> BAWindowsResult:
+    """The windowed solve of :func:`ba_windows`; ``static`` = (reps as a
+    tuple of spans, zeta_mask as a tuple or None, LMConfig). The window
+    structure is a device constant per (value, device), built once."""
+    reps, zeta_mask, lc = static
+    dev = T0s.device
+    res = lm.solve_batched(
+        T0s, constant(np.asarray(reps, np.int64).reshape(-1, 2), torch.int64, dev), p, p_t,
+        wreps=wreps, pmask=pmask,
+        zeta_mask=None if zeta_mask is None else constant(
+            np.asarray(zeta_mask, bool), torch.bool, dev),
+        lambda0=lc.lambda0, epsilon=lc.epsilon, max_iters=lc.max_iters,
+        huber_delta=lc.huber_delta,
+    )
+    reverted = res.r_norm > lc.revert_r_norm
+    T_opt = torch.where(reverted[:, None, None, None], T0s, res.T0s)
+    return BAWindowsResult(
+        T_opt=T_opt, r_norm=res.r_norm, reverted=reverted,
+        n_accepted=res.n_accepted,
+    )
+
+
 def ba_windows(
     T0s: torch.Tensor,
     spec: WindowSpec,
@@ -99,6 +123,7 @@ def ba_windows(
     pmask: torch.Tensor | None = None,
     config: BAConfig = BAConfig(),
     use_lanes: bool = True,
+    graph: bool | None = None,
 ) -> BAWindowsResult:
     """Batched windowed BA on T0s's device, with no host sync.
 
@@ -112,27 +137,22 @@ def ba_windows(
         solvers that compute the same function, its vmapped LM and a
         lane-major twin laid out for the TPU's vector registers; the port
         has one LM with the window axis first (``lm.solve_batched``).
+      graph: ``None`` replays the solve (30 LM iterations) as a CUDA graph
+        cached per (spec, ``config.lm``, input shapes) for CUDA tensors;
+        ``True`` raises on the CPU; ``False`` runs eagerly
+        (``_graphs.wanted``). Both give the same result bit for bit.
 
     Underfilled constraints should be zero-weighted by the caller; windows
     whose final residual norm exceeds ``config.lm.revert_r_norm`` revert to
     their initialization.
     """
     del use_lanes
-    lc = config.lm
-    res = lm.solve_batched(
-        T0s, torch.from_numpy(np.asarray(spec.reps, np.int64)), p, p_t,
-        wreps=wreps, pmask=pmask,
-        zeta_mask=None if spec.zeta_mask is None else torch.from_numpy(
-            np.asarray(spec.zeta_mask, bool)),
-        lambda0=lc.lambda0, epsilon=lc.epsilon, max_iters=lc.max_iters,
-        huber_delta=lc.huber_delta,
-    )
-    reverted = res.r_norm > lc.revert_r_norm
-    T_opt = torch.where(reverted[:, None, None, None], T0s, res.T0s)
-    return BAWindowsResult(
-        T_opt=T_opt, r_norm=res.r_norm, reverted=reverted,
-        n_accepted=res.n_accepted,
-    )
+    static = (tuple(map(tuple, np.asarray(spec.reps).tolist())),
+              None if spec.zeta_mask is None
+              else tuple(np.asarray(spec.zeta_mask, bool).tolist()), config.lm)
+    if _graphs.wanted(T0s, graph):
+        return _graphs.run(_solve, static, T0s, p, p_t, wreps, pmask)
+    return _solve(static, T0s, p, p_t, wreps, pmask)
 
 
 def stitch_windows(T_opt: torch.Tensor) -> torch.Tensor:

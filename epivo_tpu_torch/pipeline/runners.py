@@ -51,7 +51,7 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
-from epivo_tpu_torch._device import constant, runner_device, upload as _upload
+from epivo_tpu_torch._device import runner_device, to_device, upload as _upload
 from epivo_tpu_torch.eval import metrics
 from epivo_tpu_torch.geometry import camera as cam, epipolar, se3
 from epivo_tpu_torch import ransac as ransac_mod
@@ -131,7 +131,7 @@ def _pair_inputs(get, pairs: list, dev):
     pos = {f: k for k, f in enumerate(ids)}
     stack = _upload(np.stack([get(f) for f in ids]), dev)
     pick = lambda side: stack.index_select(
-        0, constant([pos[pr[side]] for pr in pairs], torch.int64, dev))
+        0, to_device([pos[pr[side]] for pr in pairs], torch.int64, dev))
     return pick(0), pick(1)
 
 

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from epivo_tpu_torch import ransac as ransac_mod
+from epivo_tpu_torch import _graphs, ransac as ransac_mod
 from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.frontend import fast, klt, match as match_mod, orb
 from epivo_tpu_torch.geometry import camera as cam, epipolar, essential, se3
@@ -139,10 +139,57 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
     )
 
 
+def _klt_matches(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
+                 use_kernel: bool | None):
+    """FAST -> KLT of B pairs: (p0, p1 [B, K, 3] normalized, status [B, K],
+    n_tracked [B], source and target pixels [B, K, 2])."""
+    fc = config.frontend
+    K_inv = config.camera.K_inv(img0.dtype, img0.device)
+
+    kp = fast.detect(img0, fc.fast_threshold, fc.max_keypoints,
+                     use_kernel=use_kernel)
+    flow = klt.track(
+        img0, img1, kp.xy, valid=kp.valid, win=fc.klt_window,
+        levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig,
+        use_kernel=use_kernel,
+    )
+    n_tracked = torch.sum(flow.status, dim=-1).to(torch.int32)
+    p0 = cam.normalize(kp.xy, K_inv)  # [B, K, 3]
+    p1 = cam.normalize(flow.xy, K_inv)
+    return p0, p1, flow.status, n_tracked, kp.xy, flow.xy
+
+
+def _klt_graphed(static, img0, img1, draw):
+    """The captured KLT step: ``static`` = (config, use_kernel, drawn);
+    ``draw`` is the uniforms [B, n_hyp, K] of :func:`ransac.draw_uniforms`
+    (``drawn``: the Gumbel top-k over the tracked mask runs here, as in
+    :func:`ransac._sample_indices`) or the samples [B, n_hyp, m]."""
+    config, use_kernel, drawn = static
+    p0, p1, status, n_tracked, xy0, xy1 = _klt_matches(img0, img1, config, use_kernel)
+    samples = (ransac_mod.gumbel_top_k(draw, status, ransac_mod.SAMPLE_SIZE[
+        config.ransac.solver], device=p0.device) if drawn else draw)
+    return _two_view_tail(p0, p1, status, n_tracked, xy0, xy1, None, config, samples)
+
+
+def _eager_reason(img0, generator, hyp_mesh) -> str | None:
+    """Why a step on these arguments cannot be captured, or None."""
+    if hyp_mesh is not None:
+        return "a hyp_mesh"
+    if isinstance(generator, ransac_mod.BatchDraw):
+        return "a BatchDraw"
+    if isinstance(generator, torch.Generator):
+        g, d = generator.device, img0.device
+        if g.type != d.type or (g.index is not None and d.index is not None
+                                and g.index != d.index):
+            return f"a generator on {g} for images on {d}"
+    return None
+
+
 def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
                     generator: torch.Generator | None, config: VOConfig,
                     ransac_samples: torch.Tensor | None = None,
-                    use_kernel: bool | None = None, hyp_mesh=None) -> VOStepResult:
+                    use_kernel: bool | None = None, hyp_mesh=None,
+                    graph: bool | None = None) -> VOStepResult:
     """B two-view VO steps at once. img0/img1: [B, H, W] float32 grayscale.
 
     The reference's ``jax.vmap(vo_step)`` with the pair axis written out:
@@ -158,21 +205,32 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
     that axis, as the reference's ``vo_step(hyp_mesh=)`` does.
     ``use_kernel=None`` runs the CUDA kernels for CUDA images and the plain
     versions for CPU images. Every field of the result has a leading [B].
-    """
-    fc = config.frontend
-    K_inv = config.camera.K_inv(img0.dtype, img0.device)
 
-    kp = fast.detect(img0, fc.fast_threshold, fc.max_keypoints,
-                     use_kernel=use_kernel)
-    flow = klt.track(
-        img0, img1, kp.xy, valid=kp.valid, win=fc.klt_window,
-        levels=fc.klt_levels, iters=fc.klt_iters, min_eig=fc.klt_min_eig,
-        use_kernel=use_kernel,
-    )
-    n_tracked = torch.sum(flow.status, dim=-1).to(torch.int32)
-    p0 = cam.normalize(kp.xy, K_inv)  # [B, K, 3]
-    p1 = cam.normalize(flow.xy, K_inv)
-    return _two_view_tail(p0, p1, flow.status, n_tracked, kp.xy, flow.xy,
+    ``graph`` (``_graphs.wanted``): ``None`` replays the step as a CUDA
+    graph cached per (config, ``use_kernel``, input shapes) for CUDA
+    images, unless a ``hyp_mesh``, a ``BatchDraw``, a generator on another
+    device or ``use_kernel=False`` keeps it eager; ``True`` raises where
+    it cannot capture; ``False`` runs eagerly. The uniforms behind the
+    samples are drawn eagerly before each replay, so a graphed and an
+    eager step from one generator state draw the same samples, and give
+    the same result bit for bit.
+    """
+    drawn_by = generator if ransac_samples is None else None
+    if _graphs.wanted(img0, graph, _eager_reason(img0, drawn_by, hyp_mesh),
+                      default=use_kernel is not False):
+        if ransac_samples is not None:
+            return _graphs.run(_klt_graphed, (config, use_kernel, False), img0, img1,
+                               ransac_samples)
+        if generator is None:
+            raise ValueError("vo_step_batched needs a generator or ransac_samples")
+        B, H, W = img0.shape
+        shape = (B, config.ransac.hypotheses(),
+                 fast.n_keypoints(H, W, config.frontend.max_keypoints))
+        draw = _graphs.Fill(shape, torch.float32, img0.device, lambda out: (
+            ransac_mod.draw_uniforms(generator, shape[1], shape[2], shape[:1], out=out)))
+        return _graphs.run(_klt_graphed, (config, use_kernel, True), img0, img1, draw)
+    p0, p1, status, n_tracked, xy0, xy1 = _klt_matches(img0, img1, config, use_kernel)
+    return _two_view_tail(p0, p1, status, n_tracked, xy0, xy1,
                           generator, config, ransac_samples, hyp_mesh=hyp_mesh)
 
 
@@ -236,17 +294,18 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
 def vo_step(img0: torch.Tensor, img1: torch.Tensor,
             generator: torch.Generator | None, config: VOConfig,
             ransac_samples: torch.Tensor | None = None,
-            use_kernel: bool | None = None) -> VOStepResult:
+            use_kernel: bool | None = None, graph: bool | None = None) -> VOStepResult:
     """One two-view VO step: :func:`vo_step_batched` with B = 1.
     img0/img1: [H, W] float32 grayscale.
 
     ``generator`` draws the RANSAC samples; ``ransac_samples`` (a LongTensor
     [n_hyp, m], m = 8, or 5 with the 5-point solver) replaces that draw. ``use_kernel=None`` runs the CUDA
-    kernels for CUDA images and the plain versions for CPU images.
+    kernels for CUDA images and the plain versions for CPU images;
+    ``graph`` as in :func:`vo_step_batched`.
     """
     out = vo_step_batched(img0[None], img1[None], generator, config,
                           None if ransac_samples is None else ransac_samples[None],
-                          use_kernel)
+                          use_kernel, graph=graph)
     return VOStepResult(*(f[0] for f in out))
 
 

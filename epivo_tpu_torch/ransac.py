@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from epivo_tpu_torch._device import constant
+from epivo_tpu_torch._device import to_device
 from epivo_tpu_torch.geometry import essential, fivepoint
 from epivo_tpu_torch.parallel import mesh as mesh_mod
 
@@ -71,11 +71,36 @@ def top_k_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def draw_uniforms(generator, n_hyp: int, N: int, lead: tuple = (),
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The uniforms [*lead, n_hyp, N] behind :func:`_sample_indices`, on
+    the generator's device (into ``out`` when given): the only part of the
+    draw that consumes the generator. A captured step (``_graphs.py``)
+    runs it eagerly before each replay, so a graphed run from seed s draws
+    what an eager run from seed s draws."""
+    shape = tuple(lead) + (n_hyp, N)
+    if out is not None:
+        return torch.rand(shape, generator=generator, out=out)
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def gumbel_top_k(u: torch.Tensor, mask: torch.Tensor | None,
+                 sample_size: int = MIN_SAMPLE, device=None) -> torch.Tensor:
+    """Sample indices [..., n_hyp, sample_size] from uniforms u [..., n_hyp,
+    N]: Gumbel noise, the validity mask [..., N], and the top-k."""
+    u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
+    g = (-torch.log(-torch.log(u))).to(device)
+    if mask is not None:
+        g = torch.where(mask[..., None, :], g, -torch.inf)
+    return top_k_stable(g, sample_size)[1]
+
+
 def _sample_indices(generator, n_hyp: int, N: int,
                     mask: torch.Tensor | None, sample_size: int = MIN_SAMPLE,
                     device=None, lead: tuple = ()) -> torch.Tensor:
     """[*lead, n_hyp, sample_size] sample indices, approx. without
-    replacement, valid-only: Gumbel-top-k over the validity mask [*lead, N].
+    replacement, valid-only: Gumbel-top-k over the validity mask [*lead, N]
+    (:func:`draw_uniforms`, then :func:`gumbel_top_k`).
 
     One draw of [*lead, n_hyp, N] uniforms, so a single leading lane draws
     exactly what the unbatched call draws from the same generator state.
@@ -84,16 +109,11 @@ def _sample_indices(generator, n_hyp: int, N: int,
     """
     if isinstance(generator, BatchDraw):
         g = generator.generator
-        u = torch.rand((generator.total, n_hyp, N), generator=g, device=g.device)
-        u = u.index_select(0, constant(generator.rows, torch.int64, g.device))
+        u = draw_uniforms(g, n_hyp, N, (generator.total,))
+        u = u.index_select(0, to_device(generator.rows, torch.int64, g.device))
     else:
-        u = torch.rand(tuple(lead) + (n_hyp, N), generator=generator,
-                       device=generator.device)
-    u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
-    g = (-torch.log(-torch.log(u))).to(device)
-    if mask is not None:
-        g = torch.where(mask[..., None, :], g, -torch.inf)
-    return top_k_stable(g, sample_size)[1]
+        u = draw_uniforms(generator, n_hyp, N, lead)
+    return gumbel_top_k(u, mask, sample_size, device)
 
 
 def ransac_essential(

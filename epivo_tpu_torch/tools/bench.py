@@ -367,15 +367,23 @@ def measure_ba(ba_data, device, n_iters: int = N_BA_ITERS, reps: int = N_REPS):
     return windows_per_s, windows_per_s * cfg.lm.max_iters, spread
 
 
+def _stage(fn, *args):
+    """A stage of :func:`measure_stages` as ``_graphs.run`` calls it."""
+    return fn(*args)
+
+
 def measure_stages(config, img0, img1, generator, n_iters: int = N_STAGE_ITERS,
                    reps: int = N_REPS):
     """Per-stage ms per call (``bench.py:340-406``'s split): each stage
     called ``n_iters`` times with a data dependency, timed as its own run.
+    On the card each stage is captured once as a CUDA graph and replayed
+    (``_graphs.py``), as ``bench.py:368-376`` jits each stage; the RANSAC
+    stage's uniforms are drawn before each replay, inside the timed run.
     The stages' sum can differ from the step's time (the step shares work
     between stages, and each stage here pays its own launches)."""
     import torch
 
-    from epivo_tpu_torch import ransac as ransac_mod
+    from epivo_tpu_torch import _graphs, ransac as ransac_mod
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.geometry import camera as cam, epipolar, essential, se3
     from epivo_tpu_torch.optim import lm
@@ -396,11 +404,23 @@ def measure_stages(config, img0, img1, generator, n_iters: int = N_STAGE_ITERS,
         rres.E, p0, p1, mask=rres.inliers)[:2]))
     reps0 = torch.zeros((1, 2), dtype=torch.int64, device=dev)
 
-    def stage_ms(fn):
+    n_hyp, N = rc.hypotheses(), p0.shape[0]
+    draw = lambda out=None: ransac_mod.draw_uniforms(generator, n_hyp, N, out=out)
+
+    def stage_ms(fn, drawn: bool = False):
+        """fn(carry[, uniforms]) -> carry, ``n_iters`` times a timed run."""
+        if dev.type != "cuda":
+            call = (lambda c: fn(c, draw())) if drawn else fn
+        elif drawn:
+            call = lambda c: _graphs.run(_stage, fn, c, _graphs.Fill(
+                (n_hyp, N), torch.float32, dev, draw))
+        else:
+            call = lambda c: _graphs.run(_stage, fn, c)
+
         def many():
             carry = torch.zeros((), device=dev)
             for _ in range(n_iters):
-                carry = fn(carry)
+                carry = call(carry)
             return carry
 
         return _timed(many, dev, reps)[0] / n_iters * 1e3
@@ -414,13 +434,14 @@ def measure_stages(config, img0, img1, generator, n_iters: int = N_STAGE_ITERS,
                             win=fc.klt_window, levels=fc.klt_levels, iters=fc.klt_iters,
                             min_eig=fc.klt_min_eig).xy.sum())
     stages["ransac_recover"] = stage_ms(
-        lambda c: essential.recover_pose(
+        lambda c, u: essential.recover_pose(
             essential.refine_essential(
                 ransac_mod.ransac_essential(
-                    generator, p0 + c * 1e-9, p1, n_hyp=rc.hypotheses(),
-                    threshold=thr, mask=flow.status).E,
+                    None, p0 + c * 1e-9, p1, n_hyp=n_hyp, threshold=thr,
+                    mask=flow.status,
+                    samples=ransac_mod.gumbel_top_k(u, flow.status, device=dev)).E,
                 p0, p1, mask=rres.inliers),
-            p0, p1, mask=rres.inliers)[0].sum())
+            p0, p1, mask=rres.inliers)[0].sum(), drawn=True)
     stages["lm_refine"] = stage_ms(
         lambda c: lm.solve(
             T_e[None], reps0, p0[None, :lc.n_points] + c * 1e-9, p1[None, :lc.n_points],
