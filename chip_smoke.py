@@ -19,9 +19,10 @@ Phases, each reported on its own line:
    the bench configuration, counting kernel launches, timing the step, the
    detect stage and the KLT stage, checking that fast.detect and klt.track
    make no host sync, and checking the pose against the ground truth and
-   against the plain path; the step's CUDA graph (epivo_tpu_torch/_graphs.py,
-   captured by its first call) against the eager path, from a generator
-   and from injected samples (graph_check below: bit-equal on every field,
+   against the plain path; the step's CUDA graph (epivo_tpu_torch/_graphs.py:
+   a key's first call runs eagerly, its second captures, later calls
+   replay) against the eager path, from a generator and from injected
+   samples (graph_check below: all three calls bit-equal on every field,
    launches per replay from the accounting and from torch.profiler's
    kernel names over one replay, capture seconds and memory, eager against
    graphed ms, the replay's device busy share and top kernels);
@@ -39,10 +40,12 @@ Phases, each reported on its own line:
    same ATen operators at W = 64 and W = 512 on the eager path (no loop over
    windows), windows/s and LM iterations/s (tools/bench.py's measure_ba),
    and the graph check at W = 512;
-8. orb: vo_step_orb on the corridor pair (one fast_cand and one extract
-   launch per step), vo_step_orb_batched at B = 8 (no host sync, bit-equal
-   on repeat, every lane against the ground truth, kernel path against
-   plain path), the extraction kernel at the ORB window (S = 37) for the
+8. orb: the graph checks of the ORB step (B = 1 from a generator and from
+   injected samples, B = 8, the pyramid step, the B = 44 call of the
+   draws), then vo_step_orb on the corridor pair (one fast_cand and one
+   extract launch per step), vo_step_orb_batched at B = 8 (no host sync,
+   bit-equal on repeat, every lane against the ground truth, kernel path
+   against plain path), the extraction kernel at the ORB window (S = 37) for the
    2 and 16 frames of a single and a batched step, one step on the 8-level
    pyramid (fast_cand 6, fast 2, extract 8; the dense FAST kernel against
    its plain version at that step's 127x415 and 106x346 levels), and the
@@ -51,8 +54,9 @@ Phases, each reported on its own line:
 9. sequence: the 300-frame KITTI-sized corridor through run_vo_sequence
    (ground-truth scale) and run_ba_sequence (no ground truth): ATE, length
    ratio, the pairs' accuracy, the pairs retried and replaced by ORB, the
-   wall time of each stage, and fast_cand, klt_level and the extraction
-   kernel against their plain versions on the inputs of one 32-pair
+   wall time of each stage, the ORB retry's graph keys (a batch size
+   called once runs eagerly and captures nothing), and fast_cand,
+   klt_level and the extraction kernel against their plain versions on the inputs of one 32-pair
    extraction batch and one ORB retry batch of that run, with device time
    and bound;
 10. stereo: the 60-frame KITTI-sized stereo corridor through
@@ -60,7 +64,9 @@ Phases, each reported on its own line:
    step-length error against the JAX package's own CPU spread, the metric
    scale on the card against the CPU (its depth step free of host syncs),
    pairs, retries, wall time per stage, peak_buffered and device memory,
-   and fast_cand and klt_level against their plain versions on the first
+   seed 0's window solve (its key's first call: eager) beside the same
+   solve run eagerly and graphed again, with where the key's capture
+   spent its seconds, and fast_cand and klt_level against their plain versions on the first
    extraction batch of that run, which holds rig pairs (and the ORB retry
    batch's kernels, if the retry fired);
 11. loop: the 236-frame KITTI-sized out-and-back loop course through
@@ -69,8 +75,11 @@ Phases, each reported on its own line:
    spread, the wall time of describe, retrieval, verification and the pose
    graph, and the launches of the loop stage (one pyramid ORB call for the
    keyframe stack, one per verification); the drift-injected fixture
-   through the loop stage on the card, every applied loop's verification
-   against the port's CPU path with the same samples; and fast_cand, the
+   through the loop stage on the card (34 verification calls): its
+   verification key's capture and replays, the stage again with every ORB
+   call eager (each verification result, the trajectory and the loops bit
+   for bit), every applied loop's verification against the port's CPU
+   path with the same samples; and fast_cand, the
    dense FAST kernel and the extraction kernel against their plain
    versions at the half-resolution keyframe pyramid's shapes;
 12. five-point and global BA: vo_step with RansacConfig(solver="5pt") on
@@ -84,7 +93,9 @@ Phases, each reported on its own line:
    and of one LMedS step at B = 1; and the global-BA polish on phase 9's two
    no-GT runs over their own zetas and pairs: the paired Sim(3) ATE delta
    against the JAX package's CPU spread, kept step norms, accepted steps,
-   the card against the port's CPU and a bit-equal repeat;
+   the polish graphed (each LM iteration a replay) against eager, bit-equal,
+   with the stage wall of both, the card against the port's CPU and a
+   bit-equal repeat;
 13. multi-device on one card, on phase 9's frames, seed-0 run and pairs
    (rendering nothing): (a) NCCL at a world size of 1, where
    _extract_pairs on the first 64 pairs (two 32-pair calls), _solve_windows
@@ -120,8 +131,9 @@ Phases, each reported on its own line:
    The bench itself, with the baselines pinned to one core, runs in its
    own call: python3 -m epivo_tpu_torch.tools.bench.
 
-The step and BA calls of every phase run graphed (graph=None on the
-card), so phases 9, 10, 14 and 15 time and count replays.
+The step, ORB step, BA and global-polish calls of every phase run graphed
+(graph=None on the card), so phases 9-15 time and count replays from a
+key's third call on.
 
 Before the last two lines, one JSON object holds the slice's graph checks, the batched, BA, ORB,
 sequence, stereo, loop, five-point, global, multi-device, entry-point and
@@ -129,8 +141,9 @@ bench phases' numbers; the line before the last is a JSON object with one entry
 per kernel (launches per KLT step, per ORB step, per pyramid ORB step, in
 the sequence run, in the stereo run, in the loop run, in its loop stage,
 per loop-stage call, per 5-point step, per rank and call of the 2-rank
-extraction, in the KITTI CLI's ba run, per batched call of the bench and
-per replay of the B = 8 step's graph); the last line is {"ok": true,
+extraction, in the KITTI CLI's ba run, per batched call of the bench,
+per replay of the B = 8 step's graph, of the B = 8 ORB step's and of the
+pyramid ORB step's); the last line is {"ok": true,
 "device": {...}}. Any failed check raises and exits non-zero without that
 line. Imports nothing of JAX.
 """
@@ -773,7 +786,9 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def replay_profile(fn, top: int = 6) -> dict:
     """One call of fn() under torch.profiler, after one warm-up step of the
-    profiler (a profile's first step can lose its first device record):
+    profiler and behind a marker kernel (torch.cuda._sleep's spin_kernel,
+    left out of the counts): a profile's step can lose its first device
+    record, which the warm-up step alone did not always prevent. Returns
     each counted kernel's launches by name, the device activities and
     their summed device time (one stream: they do not overlap), the
     call's host wall time under the profiler, and the top kernels by
@@ -789,6 +804,8 @@ def replay_profile(fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         prof.step()
+        torch.cuda._sleep(1000)  # the marker: the step's first device record
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -796,7 +813,8 @@ def replay_profile(fn, top: int = 6) -> dict:
         prof.step()
     _check(len(kept) == 1, "the profiler recorded no step")
     kern = [e for e in kept[0] if e.device_type == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]  # the step's own range
+            and not e.key.startswith("ProfilerStep")  # the step's own range
+            and "spin_kernel" not in e.key]
     names = {k: sum(e.count for e in kern if name in e.key) for k, name in KERNEL_NAMES.items()}
     ranked = sorted(kern, key=lambda e: -e.device_time_total)[:top]
     return dict(kernels=names, device_activities=sum(e.count for e in kern),
@@ -804,35 +822,48 @@ def replay_profile(fn, top: int = 6) -> dict:
                 top=[[e.key[:60], e.count, round(e.device_time_total / 1e3, 4)] for e in ranked])
 
 
-def graph_check(what: str, call, per_call: dict) -> dict:
+def graph_check(what: str, call, per_call: dict, turns: int = GRAPH_TURNS) -> dict:
     """``call(graph)`` (every call from the same generator seed, or the
-    same samples) captured as a CUDA graph on its first call
-    (epivo_tpu_torch/_graphs.py) and held to the eager path on the same
-    inputs: the first call (the eager run on the capture stream) and a
-    replay bit-equal to graph=False on every field; ``per_call`` launches
-    per replay from the accounting, and the same counts of kernel names in
-    torch.profiler over one replay; capture seconds, the capture's pool
-    and max_memory_allocated; eager against graphed ms per call (host
-    clock, synchronised, in turns); the replay's device busy share and top
-    kernels."""
+    same samples) through the graph cache (epivo_tpu_torch/_graphs.py)
+    and held to the eager path on the same inputs: the key's first call
+    runs eagerly and captures nothing, its second call (an eager run on
+    the capture stream) captures, its third replays; all three bit-equal
+    to graph=False on every field; ``per_call`` launches per replay from
+    the accounting, and the same counts of kernel names in torch.profiler
+    over one replay; the second call's wall, capture seconds, the
+    capture's pool and max_memory_allocated; eager against graphed ms per
+    call (host clock, synchronised, in ``turns`` turns of 2 calls each);
+    the replay's device busy share and top kernels."""
     from epivo_tpu_torch import _graphs
 
+    cache = _graphs.CACHE
+    captured = set(cache.entries)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     first = call(None)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    _check(set(cache.entries) <= captured and cache.seen,
+           f"graph: {what}: its first call captured a graph")
+    key = next(reversed(cache.seen))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    second = call(None)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    entry = next(reversed(_graphs.CACHE.entries.values()))
-    _check(entry.replays == 0, f"graph: {what}: its first call captured no graph")
+    entry = cache.entries.get(key)
+    _check(entry is not None and entry.replays == 0 and key not in cache.seen,
+           f"graph: {what}: its second call captured no graph")
     eager = call(False)
     replay = call(None)
     torch.cuda.synchronize()
-    _check(entry.replays == 1, f"graph: {what}: the second call did not replay")
-    for name, e, a, b in zip(eager._fields, eager, first, replay):
+    _check(entry.replays == 1, f"graph: {what}: the third call did not replay")
+    for name, e, a, b, c in zip(eager._fields, eager, first, second, replay):
         _check(bits_equal(a, e), f"graph: {what}: the first call's {name} differs from eager")
-        _check(bits_equal(b, e), f"graph: {what}: the replay's {name} differs from eager")
+        _check(bits_equal(b, e), f"graph: {what}: the capturing call's {name} differs from "
+               f"eager")
+        _check(bits_equal(c, e), f"graph: {what}: the replay's {name} differs from eager")
     reset_launches()
     call(None)
     torch.cuda.synchronize()
@@ -846,20 +877,23 @@ def graph_check(what: str, call, per_call: dict) -> dict:
     times = {"eager": [], "graph": []}
     for turn in ("eager", "graph", "graph", "eager"):
         times[turn] += [host_ms(lambda: call(False if turn == "eager" else None))
-                        for _ in range(GRAPH_TURNS)]
+                        for _ in range(turns)]
     ms_e, ms_g = float(np.median(times["eager"])), float(np.median(times["graph"]))
     busy = prof["device_ms"] / ms_g
-    print(f"graph: {what}: capture {entry.capture_s:.2f} s (first call {first_s:.2f} s "
-          f"with its eager run), pool {entry.pool_bytes / 1e9:.3f} GB, max_memory_allocated "
-          f"{peak_gb:.3f} GB; replay bit-equal to eager on all {len(eager)} fields; "
-          f"launches per replay {launches} (profiler names agree); eager {ms_e:.2f} ms, "
-          f"graphed {ms_g:.2f} ms per call ({ms_e / ms_g:.1f}x; medians of "
-          f"{2 * GRAPH_TURNS}, in turns); one replay: {prof['device_activities']} device "
-          f"activities, device busy {prof['device_ms']:.2f} ms, {busy:.1%} of the graphed "
-          f"call ({prof['wall_ms']:.2f} ms under the profiler), top {prof['top']}")
-    return dict(capture_s=entry.capture_s, first_call_s=first_s, pool_gb=entry.pool_bytes / 1e9,
-                max_memory_allocated_gb=peak_gb, eager_ms=ms_e, graph_ms=ms_g,
-                launches=launches, busy_share=busy, profile=prof)
+    print(f"graph: {what}: first call eager {first_s:.2f} s, nothing captured; second "
+          f"call {second_s:.2f} s with its eager run ({entry.warmup_s:.2f} s) and the capture "
+          f"({entry.capture_s:.2f} s, {entry.instantiate_s:.2f} of it instantiation), pool "
+          f"{entry.pool_bytes / 1e9:.3f} GB, max_memory_allocated {peak_gb:.3f} GB; "
+          f"all three calls bit-equal to eager on all {len(eager)} fields; launches per "
+          f"replay {launches} (profiler names agree); eager {ms_e:.2f} ms, graphed "
+          f"{ms_g:.2f} ms per call ({ms_e / ms_g:.1f}x; medians of {2 * turns}, in turns); "
+          f"one replay: {prof['device_activities']} device activities, device busy "
+          f"{prof['device_ms']:.2f} ms, {busy:.1%} of the graphed call ({prof['wall_ms']:.2f} "
+          f"ms under the profiler), top {prof['top']}")
+    return dict(first_call_s=first_s, second_call_s=second_s, capture_s=entry.capture_s,
+                warmup_s=entry.warmup_s, instantiate_s=entry.instantiate_s,
+                pool_gb=entry.pool_bytes / 1e9, max_memory_allocated_gb=peak_gb, eager_ms=ms_e,
+                graph_ms=ms_g, launches=launches, busy_share=busy, profile=prof)
 
 
 def phase_kernels(f0, f1, cfg) -> dict:
@@ -1068,7 +1102,7 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
 
     per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
                 "lk": 0}
-    # The step's CUDA graph (captured by its first call) against eager.
+    # The step's CUDA graph (captured by its second call) against eager.
     graphs = {"generator": graph_check(
         f"vo_step B=1 {H}x{W}, generator", lambda graph: vo.vo_step(
             f0, f1, gen(), cfg, graph=graph), per_step)}
@@ -1543,9 +1577,44 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
     T_gt = np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
     out = {}
+    per_step = {"fast": 0, "fast_cand": 1, "klt_level": 0, "extract": 1, "lk": 0}
+    per_pyr = {"fast": 2, "fast_cand": 6, "klt_level": 0, "extract": 8, "lk": 0}
+    cfg_p = orb_config(cfg, pyramid=True)
+    eps = torch.arange(n_pairs, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
+    img0 = (f0[None] + eps).contiguous()
+    img1 = f1[None].expand(n_pairs, -1, -1).contiguous()
+    a, b = (f[None].expand(ORB_DRAWS, -1, -1).contiguous() for f in (f0, f1))
 
-    # Single steps: launches, repeat probe, pose.
-    step = lambda c=cfg: vo.vo_step_orb(f0, f1, gen(), c)
+    # The ORB step's CUDA graphs (a key's first call eager, its second
+    # captures) against eager, before any other call of these keys: B = 1
+    # from a generator and from injected samples, B = 8, the pyramid step
+    # and the B = ORB_DRAWS call of the draws below.
+    _, _, status = vo.orb_associate(f0[None], f1[None], cfg)
+    samples1 = ransac._sample_indices(gen(), cfg.ransac.hypotheses(), status.shape[-1],
+                                      status, device=dev, lead=(1,))[0]
+    graphs = {
+        "B1_generator": graph_check(
+            f"vo_step_orb B=1 {H}x{W}, generator", lambda graph: vo.vo_step_orb(
+                f0, f1, gen(), cfg, graph=graph), per_step, turns=1),
+        "B1_samples": graph_check(
+            "vo_step_orb B=1, injected samples", lambda graph: vo.vo_step_orb(
+                f0, f1, None, cfg, ransac_samples=samples1, graph=graph), per_step, turns=1),
+        "B8": graph_check(
+            f"vo_step_orb_batched B={n_pairs}, generator", lambda graph: (
+                vo.vo_step_orb_batched(img0, img1, gen(), cfg, graph=graph)), per_step,
+            turns=1),
+        "pyramid": graph_check(
+            "vo_step_orb B=1 on the 8-level pyramid, generator", lambda graph: (
+                vo.vo_step_orb(f0, f1, gen(), cfg_p, graph=graph)), per_pyr, turns=1),
+        "draws": graph_check(
+            f"vo_step_orb_batched B={ORB_DRAWS} (the draws below), generator",
+            lambda graph: vo.vo_step_orb_batched(a, b, gen(), cfg, graph=graph), per_step,
+            turns=1),
+    }
+    out["graph"] = graphs
+
+    # Single steps (replays): launches, repeat probe, pose.
+    step = lambda c=cfg, **kw: vo.vo_step_orb(f0, f1, gen(), c, **kw)
     first = step()
     torch.cuda.synchronize()
     n_steps = 3
@@ -1557,7 +1626,6 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = launches_now()
-    per_step = {"fast": 0, "fast_cand": 1, "klt_level": 0, "extract": 1, "lk": 0}
     _check(launches == {k: v * n_steps for k, v in per_step.items()},
            f"ORB launch counts {launches} != {per_step} per step x {n_steps}")
     for r in results:
@@ -1576,10 +1644,8 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
                ms_per_step=float(np.median(times)),
                n_matches=int(first.n_tracked), r_err=r_err, dir_err=d_err)
 
-    # Batched: launches, host syncs, repeat, every lane, kernel vs plain.
-    eps = torch.arange(n_pairs, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
-    img0 = (f0[None] + eps).contiguous()
-    img1 = f1[None].expand(n_pairs, -1, -1).contiguous()
+    # Batched (replays): launches, host syncs, repeat, every lane, kernel
+    # vs plain.
     batched = lambda **kw: vo.vo_step_orb_batched(img0, img1, gen(), cfg, **kw)
     warm = batched()
     torch.cuda.synchronize()
@@ -1621,8 +1687,7 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
                lanes_r_err=r_gt, lanes_dir_err=d_gt, kernel_vs_plain=[r_kp, d_kp])
 
     # The port's spread over ORB_DRAWS RANSAC draws: identical lanes of one
-    # batched call, each drawing its own samples.
-    a, b = (f[None].expand(ORB_DRAWS, -1, -1).contiguous() for f in (f0, f1))
+    # batched call (a replay), each drawing its own samples.
     draws = vo.vo_step_orb_batched(a, b, gen(), cfg)
     errs = np.array([_pose_err(T, T_gt) for T in draws.T.cpu().numpy()])
     med, worst = np.median(errs, 0), errs.max(0)
@@ -1653,11 +1718,11 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
         rows[f"S37_{label}"] = extract_report(imgs, oy, ox, S, " (ORB describe)")
     out["extract"] = rows
 
-    # One step on the 8-level scale pyramid; the warm-up step records the
-    # dense FAST kernel's inputs (levels 6-7, below 65,536 pixels).
-    cfg_p = orb_config(cfg, pyramid=True)
+    # One step on the 8-level scale pyramid (a replay); an eager step
+    # records the dense FAST kernel's inputs (levels 6-7, below 65,536
+    # pixels).
     with recording(fast, "fast_score_map_kernel") as dense:
-        step(cfg_p)
+        step(cfg_p, graph=False)
     torch.cuda.synchronize()
     stacks = [(img.reshape(-1, *img.shape[-2:]), thr) for img, thr, *_ in dense]
     out["fast_dense"] = {f"{img.shape[1]}x{img.shape[2]}_B{img.shape[0]}": dense_report(
@@ -1668,13 +1733,12 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     torch.cuda.synchronize()
     pyr_ms = (time.perf_counter() - t0) * 1e3
     launches_p = launches_now()
-    per_pyr = {"fast": 2, "fast_cand": 6, "klt_level": 0, "extract": 8, "lk": 0}
     _check(launches_p == per_pyr, f"pyramid ORB launches {launches_p} != {per_pyr}")
     r_err, d_err = _pose_err(r_pyr.T.cpu().numpy(), T_gt)
     _check(bool(torch.isfinite(r_pyr.T).all()) and r_err < PYR_GT_R_TOL
            and d_err < PYR_GT_DIR_TOL,
            f"pyramid ORB pose vs ground truth: |dR|_F={r_err:.4g}, dir={d_err:.4g}")
-    print(f"orb: pyramid step (8 levels, scale 1.2) launches {launches_p}, "
+    print(f"orb: pyramid step (8 levels, scale 1.2, a replay) launches {launches_p}, "
           f"matches={int(r_pyr.n_tracked)} n_inliers={int(r_pyr.n_inliers)} "
           f"|R-R_gt|_F={r_err:.4g} dir_err={d_err:.4g}, {pyr_ms:.2f} ms")
     out.update(pyramid=dict(launches_per_step=launches_p, ms=pyr_ms, r_err=r_err,
@@ -1763,6 +1827,30 @@ def turn_pair(dev) -> dict:
         orb_median_inliers=float(np.median(n_o))))
 
 
+def graph_keys(fn_name: str, known: set) -> dict:
+    """The graph cache's keys of ``vo.<fn_name>`` (or another module's
+    function of that name) not in ``known``, by the first input's shape:
+    (captured, replays), captured False for a key seen once and run
+    eagerly."""
+    from epivo_tpu_torch import _graphs
+
+    out = {}
+    for key, e in _graphs.CACHE.entries.items():
+        if key[0].__name__ == fn_name and key not in known:
+            out[key[2][0][0]] = (True, e.replays)
+    for key in _graphs.CACHE.seen:
+        if key[0].__name__ == fn_name and key not in known:
+            out[key[2][0][0]] = (False, 0)
+    return out
+
+
+def cache_keys() -> set:
+    """Every key the graph cache holds or has seen once."""
+    from epivo_tpu_torch import _graphs
+
+    return set(_graphs.CACHE.entries) | set(_graphs.CACHE.seen)
+
+
 def phase_sequence(dev) -> dict:
     """The 300-frame corridor through both sequence runners: VO with the
     ground-truth scale, and windowed BA with no ground truth at SEQ_SEEDS,
@@ -1789,6 +1877,7 @@ def phase_sequence(dev) -> dict:
            f"VO sequence ATE {vo_run['ate_pct_of_length']:.3f} % > {SEQ_VO_ATE_PCT} %")
 
     runs, results, launches, pair_data, recorded = [], [], None, None, None
+    known, retry_calls = cache_keys(), {}
     for seed in SEQ_SEEDS:
         reset_launches()
         with (sequence_recording() if launches is None
@@ -1813,6 +1902,24 @@ def phase_sequence(dev) -> dict:
               f"solve {st['solve_s']:.2f} s, run_ba_sequence total {st['total_s']:.1f} s")
         _check(run["windows_reverted"] == 0, f"seed {seed}: {run['windows_reverted']} windows "
                f"reverted")
+        # The ORB retry's keys: a batch size called once in the process runs
+        # eagerly and captures nothing; a second call captures.
+        for b in st["retry_lanes"]:
+            retry_calls[b] = retry_calls.get(b, 0) + 1
+        orb_keys = {k[0]: v for k, v in graph_keys("_orb_graphed", known).items()
+                    if tuple(k[1:]) == (H, W)}
+        for b, n in retry_calls.items():
+            _check(b in orb_keys and orb_keys[b][0] == (n >= 2),
+                   f"seed {seed}: the ORB retry key B={b} called {n} time(s) shows "
+                   f"{orb_keys.get(b)} (captured, replays) in the graph cache")
+        print(f"sequence: seed {seed} ORB retry calls {st['retry_lanes']} (B per call); graph "
+              f"cache, retry keys so far: " + ", ".join(
+                  f"B={b} called {n}x " + ("captured, " + str(orb_keys[b][1]) + " replays"
+                                           if orb_keys[b][0] else "eager, nothing captured")
+                  for b, n in sorted(retry_calls.items())))
+        run["retry_keys"] = {str(b): dict(calls=n, captured=orb_keys[b][0],
+                                          replays=orb_keys[b][1])
+                             for b, n in retry_calls.items()}
         runs.append(run)
     print(f"sequence: launches in the seed-{SEQ_SEEDS[0]} run {launches}")
     _check(launches["fast_cand"] > 0 and launches["klt_level"] > 0
@@ -1860,7 +1967,8 @@ def phase_sequence(dev) -> dict:
            f"no-GT median length ratio {med_ratio:.4f} outside {SEQ_RATIO}")
     for r in runs:
         r["stats"] = {k: r["stats"][k] for k in ("n_pairs", "n_retried", "n_replaced",
-                                                 "extract_s", "solve_s", "total_s")}
+                                                 "extract_s", "orb_retry_s", "solve_s",
+                                                 "total_s")}
     st = runs[0]["stats"]
     return dict(render_s=render_s, length_m=length, vo=vo_run, ba=runs, launches=launches,
                 pairs_s=st["n_pairs"] / st["extract_s"], median_ate_pct=med_ate,
@@ -1985,14 +2093,17 @@ def phase_stereo(dev) -> tuple[dict, dict, tuple]:
     render_s = time.perf_counter() - t0
     print(f"stereo: rendered {len(L)} + {len(R)} frames {H}x{W} in {render_s:.1f} s "
           f"(trajectory {length:.2f} m, baseline {ps.BASELINE} m), bit-equal on frames 0-1")
-    runs, launches, res0, recorded = [], [], None, None
+    runs, launches, res0, recorded, solves = [], [], None, None, []
     for seed in STEREO_SEEDS:
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        with (sequence_recording(STEREO_BATCH) if res0 is None
-              else contextlib.nullcontext()) as rec:
+        with contextlib.ExitStack() as stack:
+            rec = (stack.enter_context(sequence_recording(STEREO_BATCH)) if res0 is None
+                   else None)
+            recorded_solves = stack.enter_context(recording(runners, "_solve_windows"))
             run, res = ps.run_seed(STEREO_FRAMES, seed, batch=STEREO_BATCH, frames=(L, R),
                                    device=dev)
+        solves += recorded_solves
         launches.append(launches_now())
         run["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
         if res0 is None:
@@ -2024,6 +2135,7 @@ def phase_stereo(dev) -> tuple[dict, dict, tuple]:
     _check(l0["fast_cand"] > 0 and l0["klt_level"] > 0
            and (runs[0]["stats"]["n_retried"] == 0 or l0["extract"] > 0),
            f"the stereo run did not go through the kernels: {l0}")
+    solve = stereo_solve_check(solves, [r["stats"]["solve_s"] for r in runs], dev)
     first = sorted(res0.pair_data)[:STEREO_BATCH]
     n_rig = sum(1 for i, j in first if i % 2 == 0 and j == i + 1)
     _check(n_rig > 0, f"the first extraction batch {first} holds no rig pair")
@@ -2072,21 +2184,66 @@ def phase_stereo(dev) -> tuple[dict, dict, tuple]:
     keep = (L[:ENTRY_STEREO_FRAMES], R[:ENTRY_STEREO_FRAMES], gt[:ENTRY_STEREO_FRAMES], K, T_rig)
     return dict(render_s=render_s, length_m=length, runs=runs, launches=launches,
                 median_ate_pct=med_ate, median_ratio=med_ratio,
-                scale_card_vs_cpu=dmax, hampel=reps), kernels, keep
+                scale_card_vs_cpu=dmax, hampel=reps, window_solve=solve), kernels, keep
+
+
+def stereo_solve_check(solves: list, walls: list, dev) -> dict:
+    """Seed 0's window solve (the first call of its graph key: eager, no
+    capture) beside the same solve run eagerly again (graph=False) and
+    graphed again, on the inputs the runner gave it; the eager and the
+    graphed result bit-equal."""
+    from epivo_tpu_torch import _graphs
+    from epivo_tpu_torch.pipeline import ba, runners
+
+    _check(len(solves) == len(walls) == len(STEREO_SEEDS),
+           f"stereo: {len(solves)} window solves recorded for {len(walls)} seeds")
+    keys = [tuple(np.asarray(a).shape for a in args[:1] + args[2:6]) for args in solves]
+    solve_windows = ba.ba_windows
+
+    def solve(graph):
+        with patched(ba, "ba_windows", lambda *a, **kw: solve_windows(*a, graph=graph, **kw)):
+            t0 = time.perf_counter()
+            out = runners._solve_windows(*solves[0], device=dev)
+            return out, time.perf_counter() - t0
+
+    out_e, eager_s = solve(False)
+    out_g, graph_s = solve(None)
+    for name, e, g in zip(out_e._fields, out_e, out_g):
+        bits = lambda x: np.ascontiguousarray(np.atleast_1d(x)).view(np.uint8)
+        _check(np.array_equal(bits(e), bits(g)),
+               f"stereo: seed 0's window solve graphed differs from eager in {name}")
+    # Where a capture's seconds go: the eager warm-up, the recording (the
+    # function's Python run again, issuing nothing), the instantiation.
+    n = solves[0][0].shape[0]
+    split = [dict(warmup_s=e.warmup_s, record_s=e.capture_s - e.instantiate_s,
+                  instantiate_s=e.instantiate_s, pool_gb=e.pool_bytes / 1e9, replays=e.replays)
+             for k, e in _graphs.CACHE.entries.items()
+             if k[0] is ba._solve and k[2][0][0][0] == n]
+    print(f"stereo: window solve, {n} windows: seed 0's run {walls[0]:.2f} "
+          f"s (the key's first call: eager, nothing captured), seed 1's {walls[1]:.2f} s "
+          f"({'the same key: its capture' if keys[1] == keys[0] else 'another key: eager'}); "
+          f"seed 0's solve again eagerly {eager_s:.2f} s, graphed {graph_s:.2f} s, bit-equal; "
+          f"the key's capture: " + ", ".join(
+              f"warm-up {c['warmup_s']:.2f} s, recording {c['record_s']:.2f} s, instantiation "
+              f"{c['instantiate_s']:.2f} s, pool {c['pool_gb']:.3f} GB" for c in split))
+    return dict(seed_s=walls, eager_s=eager_s, graph_s=graph_s, same_key=keys[1] == keys[0],
+                capture=split)
 
 
 @contextlib.contextmanager
 def loop_recording():
     """Record, during one run with loop closure on, the launch counts of
     the loop stage, of its describe call and of each verification call
-    (loopclose._vo_pairs), and the first inputs per shape that the
-    describe call gives fast_cand, the dense FAST kernel and the
-    extraction kernel. Yields {"stage": counts, "describe": counts,
-    "pairs": [counts per call], "inputs": {(kernel, H, W): args}}."""
+    (loopclose._vo_pairs), each verification call's result, and the first
+    inputs per shape that the describe call gives fast_cand, the dense
+    FAST kernel and the extraction kernel. Yields {"stage": counts,
+    "describe": counts, "pairs": [counts per call], "pair_out": [result
+    per call], "inputs": {(kernel, H, W): args}, "stage_call": (the loop
+    stage's args, its keywords, its result)}."""
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.pipeline import loopclose, runners
 
-    rec = {"pairs": [], "inputs": {}}
+    rec = {"pairs": [], "pair_out": [], "inputs": {}}
     in_describe = []
 
     def counted(module, name, key, keep_inputs=False):
@@ -2104,8 +2261,11 @@ def loop_recording():
             diff = {k: v - before[k] for k, v in launches_now().items()}
             if key == "pairs":
                 rec["pairs"].append(diff)
+                rec["pair_out"].append(out)
             else:
                 rec[key] = diff
+            if key == "stage":
+                rec["stage_call"] = (args, kw, out)
             return out
 
         return patched(module, name, run)
@@ -2173,7 +2333,8 @@ def phase_loop(dev) -> tuple[dict, dict]:
     """Loop closure: the out-and-back loop course through run_ba_sequence
     with loop closure on (no ground truth), held to the JAX package's CPU
     spread (LOOP_* above), with the loop stage's launches per call; the
-    drift-injected fixture through the loop stage on the card, with every
+    drift-injected fixture through the loop stage on the card, its
+    verification key's replays held to eager (loop_graph_check), with every
     applied loop's verification against the CPU; and fast_cand, the dense
     FAST kernel and the extraction kernel against their plain versions at
     the keyframe pyramid's shapes. Returns (the phase's numbers, the kernel
@@ -2230,10 +2391,12 @@ def phase_loop(dev) -> tuple[dict, dict]:
            and rec["stage"] == {k: v * n_calls for k, v in per_call.items()},
            f"loop stage launches {rec['stage']} != {n_calls} x {per_call}")
 
-    # The drift-injected fixture on the card, and its loops' verification
-    # against the CPU.
+    # The drift-injected fixture on the card (its verification key
+    # captured and replayed), and its loops' verification against the CPU.
     reset_launches()
-    drift = pl.run_drift(frames, dev)
+    before = orb_pair_keys()
+    with loop_recording() as rec_d:
+        drift = pl.run_drift(frames, dev)
     drift_launches = launches_now()
     print(f"loop: drift fixture: position RMSE {drift['ate_before_m']:.3f} m -> "
           f"{drift['ate_after_m']:.3f} m, loops {[(l['i'], l['j'], l['inliers']) for l in drift['loops']]}"
@@ -2243,6 +2406,7 @@ def phase_loop(dev) -> tuple[dict, dict]:
            and drift["ate_after_m"] < LOOP_DRIFT_GAIN * drift["ate_before_m"],
            f"drift fixture: {len(drift['loops'])} loops, RMSE {drift['ate_before_m']:.3f} -> "
            f"{drift['ate_after_m']:.3f} m")
+    verify_graph = loop_graph_check(rec_d, before)
     cfg_d = pl.ba_config(pc, camera, pl.DRIFT, enabled=True)
     store = pl.keyframes(loopclose, frames, cfg_d)
     applied = [loopclose.Loop(l["i"], l["j"], None, l["inliers"], l["retrieval_score"])
@@ -2279,7 +2443,80 @@ def phase_loop(dev) -> tuple[dict, dict]:
                     "n_pairs", "extract_s", "solve_s", "total_s")},
                 launches=launches, launches_stage=rec["stage"], launches_per_call=per_call,
                 drift={k: drift[k] for k in ("ate_before_m", "ate_after_m", "loops", "wall_s")},
-                drift_launches=drift_launches, verify_card_vs_cpu=verify), kernels
+                drift_launches=drift_launches, verify_card_vs_cpu=verify,
+                verify_graph=verify_graph), kernels
+
+
+def _same(a, b) -> bool:
+    """Equal bit for bit, through tuples and lists (NaN equals NaN)."""
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if a is None or b is None or isinstance(a, (str, bool)):
+        return a == b
+    x, y = np.asarray(a), np.asarray(b)
+    return x.dtype == y.dtype and np.array_equal(x, y, equal_nan=x.dtype.kind in "fc")
+
+
+def orb_pair_keys() -> dict:
+    """The graph cache's B = 2 ORB keys at a size other than the pair's (the
+    loop stage's verification calls): {key: calls so far}, 1 for a key
+    seen once, 2 + replays for a captured one."""
+    from epivo_tpu_torch import _graphs
+
+    is_pair = lambda k: (k[0].__name__ == "_orb_graphed" and k[2][0][0][0] == 2
+                         and tuple(k[2][0][0][1:]) != (H, W))
+    calls = {k: 2 + e.replays for k, e in _graphs.CACHE.entries.items() if is_pair(k)}
+    calls.update({k: 1 for k in _graphs.CACHE.seen if is_pair(k)})
+    return calls
+
+
+def loop_graph_check(rec: dict, before: dict) -> dict:
+    """The verification key of a loop stage run under loop_recording (one
+    B = 2 ORB call per verification and scale check): its calls in the run
+    counted by the graph cache as the key's history says (first call eager,
+    second captured, the rest replayed); then the stage run again on the
+    same trajectory and keyframes with every ORB call eager (graph=False):
+    each verification call's result, and the stage's trajectory and loops,
+    bit for bit the run's. ``before``: orb_pair_keys() before the run."""
+    from epivo_tpu_torch.pipeline import loopclose, runners, vo
+
+    n = len(rec["pairs"])
+    after = orb_pair_keys()
+    moved = {k: c for k, c in after.items() if c != before.get(k, 0)}
+    _check(len(moved) == 1, f"loop: {n} verification calls moved the keys "
+           f"{[(list(k[2][0][0]), before.get(k, 0), c) for k, c in moved.items()]}")
+    key, calls = next(iter(moved.items()))
+    prior = before.get(key, 0)
+    captured = calls >= 2
+    replays = max(calls - 2, 0)
+    _check(calls == prior + n and replays > 0,
+           f"loop: {n} verification calls on a key called {prior} times before: the cache "
+           f"counts {calls} calls, {replays} replays")
+    args, kw, out = rec["stage_call"]
+    orb_batched, vo_pairs = vo.vo_step_orb_batched, loopclose._vo_pairs
+    eager_out = []
+    t0 = time.perf_counter()
+    with patched(vo, "vo_step_orb_batched",
+                 lambda *a, **k: orb_batched(*a, **{**k, "graph": False})), \
+            patched(loopclose, "_vo_pairs",
+                    lambda *a, **k: eager_out.append(vo_pairs(*a, **k)) or eager_out[-1]):
+        eager = runners._loop_stage(*args, **{**kw, "stats": {}})
+    eager_s = time.perf_counter() - t0
+    _check(len(eager_out) == n, f"loop: the eager rerun made {len(eager_out)} verification "
+           f"calls, the run {n}")
+    differ = [i for i, (g, e) in enumerate(zip(rec["pair_out"], eager_out)) if not _same(g, e)]
+    _check(not differ, f"loop: verification calls {differ} of {n} differ from eager")
+    _check(_same(out, eager), "loop: the loop stage with eager ORB calls gives other "
+           "loops or another trajectory")
+    first_replay = max(2 - prior, 0)
+    print(f"loop: drift fixture's verification key {list(key[2][0][0])}: called {prior} "
+          f"times before, {n} B = 2 calls in the stage, {replays} replays in all (calls "
+          f"{first_replay + 1}-{n} of the stage replayed); the stage again with every ORB call "
+          f"eager: all {n} verification results and the trajectory and loops bit for bit "
+          f"(eager stage {eager_s:.2f} s)")
+    return dict(calls=n, prior_calls=prior, captured=captured, replays=replays,
+                replayed_in_stage=n - first_replay, eager_stage_s=eager_s)
 
 
 def candidate_match(Es_a, va, Es_b, vb, tol: float = FIVE_MATCH_TOL) -> tuple[int, int]:
@@ -2533,7 +2770,62 @@ def phase_global(results: list, gt, length: float, dev) -> dict:
     _check(GLOBAL_DELTA[0] <= med <= GLOBAL_DELTA[1],
            f"global median paired delta {med:+.3f} pp outside {GLOBAL_DELTA}")
     return dict(runs=runs, median_delta_pp=med,
+                graph=global_graph_check(results[0][0], results[0][1], dev),
                 card_vs_cpu=global_card_vs_cpu(results[0][0], results[0][1], dev))
+
+
+def global_graph_check(seed: int, res, dev) -> dict:
+    """refine_global graphed (graph=None: every LM iteration a replay of
+    the iteration's graph, captured by the first polish of these shapes)
+    against eager (graph=False) on a no-GT run's own zetas and pairs:
+    zetas and every result field bit-equal; the stage wall of both (host
+    clock; the stage ends with its copy to the host), in turns; the
+    iteration key's replays, capture seconds and pool; one graphed stage
+    under torch.profiler."""
+    from epivo_tpu_torch import _graphs
+    from epivo_tpu_torch.parallel import global_ba as gba
+    from epivo_tpu_torch.pipeline import runners
+    from epivo_tpu_torch.pipeline.config import GlobalBAConfig
+    from epivo_tpu_torch.tools import photoreal_ate
+
+    cfg = dataclasses.replace(photoreal_ate.configs()[1],
+                              global_ba=GlobalBAConfig(enabled=True))
+    zetas = res.per_frame["zetas"]
+    solve = gba.global_ba_solve
+
+    def run(graph):
+        with patched(gba, "global_ba_solve", lambda *a, **kw: solve(*a, graph=graph, **kw)):
+            return runners.refine_global(zetas, res.pair_data, cfg, device=dev)
+    z_e, r_e = run(False)
+    z_g, r_g = run(None)
+    bits = lambda x: np.ascontiguousarray(np.atleast_1d(np.asarray(x))).view(np.uint8)
+    _check(np.array_equal(bits(z_e), bits(z_g)), "global: graphed zetas differ from eager")
+    for name, e, g in zip(r_e._fields, r_e, r_g):
+        _check(np.array_equal(bits(e), bits(g)), f"global: graphed {name} differs from eager")
+    entries = [e for k, e in _graphs.CACHE.entries.items()
+               if k[0].__name__ == "_lm_iteration" and k[2][0][0] == (zetas.shape[0], 4, 4)]
+    _check(len(entries) >= 1, f"global: no captured LM iteration for Z = {zetas.shape[0]}")
+    entry = max(entries, key=lambda e: e.replays)
+    times = {"eager": [], "graph": []}
+    for turn in ("eager", "graph", "graph", "eager"):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run(False if turn == "eager" else None)
+            times[turn].append(time.perf_counter() - t0)
+    s_e, s_g = float(np.median(times["eager"])), float(np.median(times["graph"]))
+    prof = replay_profile(lambda: run(None))
+    iters = cfg.global_ba.max_iters
+    print(f"global: polish graphed vs eager on seed {seed}'s input ({zetas.shape[0]} zetas, "
+          f"{iters} LM iterations of {cfg.global_ba.cg_iters} CG steps): zetas and "
+          f"{len(r_e)} result fields bit-equal; the iteration's graph captured in "
+          f"{entry.capture_s:.2f} s, pool {entry.pool_bytes / 1e9:.3f} GB, {entry.replays} "
+          f"replays so far; stage wall eager {s_e:.3f} s, graphed {s_g:.3f} s ({s_e / s_g:.1f}x; "
+          f"medians of 4, in turns); one graphed stage: {prof['device_activities']} device "
+          f"activities, device busy {prof['device_ms']:.2f} ms, "
+          f"{prof['device_ms'] / (s_g * 1e3):.1%} of the graphed stage, top {prof['top'][:3]}")
+    return dict(eager_s=s_e, graph_s=s_g, capture_s=entry.capture_s,
+                pool_gb=entry.pool_bytes / 1e9, replays=entry.replays,
+                device_activities=prof["device_activities"], device_ms=prof["device_ms"])
 
 
 def _pairs_equal(a: dict, b: dict) -> list:
@@ -3106,7 +3398,7 @@ def phase_bench(f0, f1, cfg, smi: str) -> tuple[dict, dict]:
     reset_launches()
     batched_fps, spread_b = bench.measure_batched(step_batched, f0, f1, gen, q["n_batch"],
                                                   q["n_batch_iters"], q["n_reps"])
-    calls = (1 + q["n_reps"]) * q["n_batch_iters"]  # the warm run's too
+    calls = (2 + q["n_reps"]) * q["n_batch_iters"]  # the two warm runs' too
     launches = launches_now()
     per_call = {"fast": 0, "fast_cand": 1, "klt_level": cfg.frontend.klt_levels,
                 "extract": 0, "lk": 0}
@@ -3208,8 +3500,13 @@ def main() -> int:
 
     print("graph cache (least recently used first): " + "; ".join(
         f"{key[0].__name__} {[None if a is None else list(a[0]) for a in key[2]]} "
-        f"replays {e.replays}, capture {e.capture_s:.2f} s, pool {e.pool_bytes / 1e9:.3f} GB"
+        f"replays {e.replays}, warm-up {e.warmup_s:.2f} s, capture {e.capture_s:.2f} s "
+        f"(instantiation {e.instantiate_s:.2f}), pool {e.pool_bytes / 1e9:.3f} GB"
         for key, e in _graphs.CACHE.entries.items()))
+    print("graph cache, keys called once (eager, nothing captured; least recently seen "
+          "first): " + "; ".join(
+              f"{key[0].__name__} {[None if a is None else list(a[0]) for a in key[2]]}"
+              for key in _graphs.CACHE.seen))
     print(f"phases (wall s): {phase_s}")
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"slice_graph": slice_graphs, "batched": batched, "ba": ba_report,
@@ -3232,6 +3529,8 @@ def main() -> int:
          "launches_multi_rank_retry": multi_kernels["retry"][k],
          "launches_cli": launches_cli[k], "launches_bench": launches_bench[k],
          "launches_per_replay": batched["graph"]["generator"]["launches"][k],
+         "launches_per_orb_replay": orb["graph"]["B8"]["launches"][k],
+         "launches_per_pyramid_orb_replay": orb["graph"]["pyramid"]["launches"][k],
          **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]

@@ -1,6 +1,6 @@
 """Compile-once dispatch on the card: each (function, static configuration,
 input shapes) of a main-path entry point is captured as a CUDA graph on
-its first call and replayed on every later call.
+its second call and replayed on every later call.
 
 This is the port's counterpart of the reference's ``jax.jit`` under
 ``functools.lru_cache(maxsize=16)`` (``epivo_tpu/pipeline/runners.py:52,317``):
@@ -14,17 +14,23 @@ is hashable (the frozen config dataclasses); each argument is a tensor,
 argument's shape, dtype and device (``None`` where an optional input is
 absent); a new shape is a new key, as a new shape is a new jit.
 
-- First call for a key: ``fn`` runs eagerly on the capture stream, and its
-  result is the call's result. That run also builds the lazy state a
-  capture may not build (cuBLAS handles and workspaces, the kernel library
-  of ``_kernels.lib()``, allocator blocks). Then ``fn`` is captured with
+- First call for a key: ``fn`` runs eagerly on the caller's stream and
+  nothing is captured; the key goes into a "seen" LRU of the same size.
+  Unlike XLA's compile, a capture is pure overhead (the eager run has
+  already done the work), so a key called once (a short last batch, a
+  one-shot retry) never pays for one.
+- Second call: ``fn`` runs eagerly on the capture stream, and its result
+  is the call's result. That run also builds the lazy state a capture may
+  not build (cuBLAS handles and workspaces, the kernel library of
+  ``_kernels.lib()``, allocator blocks). Then ``fn`` is captured with
   ``torch.cuda.graph`` on static copies of the inputs, into static outputs
   in a private memory pool of its own (an entry's replays never share a
   pool with another's).
 - Later calls copy the inputs into the static buffers, replay, and return
   clones of the outputs: callers dispatch ahead and keep earlier results,
   and JAX returns fresh arrays too.
-- The least recently used entry goes when a 17th key arrives.
+- The least recently used entry goes when a 17th key is captured; the
+  least recently seen key when a 17th is seen once.
 
 The kernels' launch counters (``frontend/fast.py``, ``frontend/klt.py``)
 are Python integers that a wrapper bumps when its Python runs, which a
@@ -133,6 +139,8 @@ class Entry:
     launches: dict  # counter -> launches per replay
     capture_s: float  # host seconds of the capture and instantiation
     pool_bytes: int  # device memory the capture reserved (its private pool)
+    warmup_s: float = 0.0  # host seconds of the eager run before the capture
+    instantiate_s: float = 0.0  # the part of capture_s after the recording
     replays: int = 0
 
 
@@ -162,14 +170,29 @@ class CudaCapture:
         return out
 
     def capture(self, fn, static, inputs, device):
-        """(graph, static outputs, bytes reserved by the capture)."""
+        """(graph, static outputs, bytes reserved by the capture, host
+        seconds from the end of the recording to the instantiated graph)."""
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self._stream(device)):
             out = fn(static, *inputs)
-        return graph, out, torch.cuda.memory_reserved(device) - before
+            recorded = time.perf_counter()
+        instantiate_s = time.perf_counter() - recorded
+        return graph, out, torch.cuda.memory_reserved(device) - before, instantiate_s
+
+
+def _filled(args) -> list:
+    """The arguments with each :class:`Fill` written into a new tensor."""
+    out = []
+    for a in args:
+        if isinstance(a, Fill):
+            buf = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+            a.fill(buf)
+            a = buf
+        out.append(a)
+    return out
 
 
 class GraphCache:
@@ -179,12 +202,18 @@ class GraphCache:
         self.maxsize = maxsize
         self.capturer = capturer if capturer is not None else CudaCapture()
         self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.seen: collections.OrderedDict = collections.OrderedDict()  # called once
 
     def __call__(self, fn: Callable, static: Hashable, *args):
         key = (fn, static, tuple(_spec(a) for a in args))
         entry = self.entries.get(key)
         if entry is None:
-            return self._first(key, fn, static, args)
+            if self.seen.pop(key, None) is None:
+                self.seen[key] = True
+                while len(self.seen) > self.maxsize:
+                    self.seen.popitem(last=False)
+                return fn(static, *_filled(args))
+            return self._capture(key, fn, static, args)
         self.entries.move_to_end(key)
         for buf, a in zip(entry.inputs, args):
             if isinstance(a, Fill):
@@ -196,26 +225,23 @@ class GraphCache:
         _add_launches(entry.launches)
         return _map(torch.clone, entry.outputs)
 
-    def _first(self, key, fn, static, args):
+    def _capture(self, key, fn, static, args):
         device = next(torch.device(s[2]) for s in key[2] if s is not None)
-        eager_args = []
-        for a in args:
-            if isinstance(a, Fill):
-                buf = torch.empty(a.shape, dtype=a.dtype, device=a.device)
-                a.fill(buf)
-                a = buf
-            eager_args.append(a)
+        eager_args = _filled(args)
+        t0 = time.perf_counter()
         out = self.capturer.warmup(fn, static, eager_args, device)
+        warmup_s = time.perf_counter() - t0
         inputs = [a if isinstance(f, Fill) or a is None
                   else torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
                   for f, a in zip(args, eager_args)]
         before = launches()
         t0 = time.perf_counter()
-        graph, outputs, pool = self.capturer.capture(fn, static, inputs, device)
+        graph, outputs, pool, instantiate_s = self.capturer.capture(fn, static, inputs, device)
         capture_s = time.perf_counter() - t0
         delta = {k: v - before[k] for k, v in launches().items()}
         _add_launches(delta, -1)  # the capture launched nothing
-        self.entries[key] = Entry(graph, inputs, outputs, delta, capture_s, pool)
+        self.entries[key] = Entry(graph, inputs, outputs, delta, capture_s, pool,
+                                  warmup_s=warmup_s, instantiate_s=instantiate_s)
         while len(self.entries) > self.maxsize:
             self.entries.popitem(last=False)
         return out

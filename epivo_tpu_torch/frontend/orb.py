@@ -129,6 +129,24 @@ def level_budgets(max_keypoints: int, n_levels: int, scale_factor: float) -> lis
     return budgets
 
 
+def n_keypoints(H: int, W: int, frontend_config) -> int:
+    """The K of ``vo.orb_associate``'s result on [B, H, W] frames under
+    ``frontend_config`` (a ``FrontendConfig``), known before the step runs:
+    :func:`fast.n_keypoints` of the frame at single scale; on the pyramid,
+    the sum of :func:`fast.n_keypoints` over the levels that
+    :func:`detect_and_describe_pyramid` keeps, each at its own budget."""
+    fc = frontend_config
+    if not fc.orb_pyramid:
+        return fast_mod.n_keypoints(H, W, fc.max_keypoints)
+    K, h, w = 0, H, W
+    for budget in level_budgets(fc.max_keypoints, fc.orb_levels, fc.orb_scale_factor):
+        if min(h, w) >= 2 * PATCH and budget > 0:
+            K += fast_mod.n_keypoints(h, w, budget)
+        h = max(int(round(h / fc.orb_scale_factor)), 1)
+        w = max(int(round(w / fc.orb_scale_factor)), 1)
+    return K
+
+
 def detect_and_describe_pyramid(
     img: torch.Tensor,
     threshold: float = 40.0,

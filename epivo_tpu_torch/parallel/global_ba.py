@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from epivo_tpu_torch import _graphs
 from epivo_tpu_torch._device import to_device
 from epivo_tpu_torch.geometry import epipolar, se3
 from epivo_tpu_torch.parallel import mesh as mesh_mod
@@ -208,6 +209,35 @@ def _pcg(matvec, b, diag, lam, iters):
     return x
 
 
+def _energy(Ts, reps, p, p_t, w, pm, max_span, huber_delta, psum):
+    """The weighted epipolar energy of the chain Ts over the constraints."""
+    T0r = _compose(prefix_band(Ts, max_span), reps)
+    r = epipolar.residual_from_T(T0r, p, p_t, huber_delta, pm)
+    return psum(torch.sum((r * w[:, None]) ** 2))
+
+
+def _lm_iteration(static, Ts, lam, prev_E, n_acc, reps, zidx, zmask, inc, inc_ok, w, p,
+                  p_t, pm, psum=lambda x: x):
+    """One LM iteration of :func:`global_ba_solve`: the carried state (Ts
+    [Z, 4, 4]; lam, prev_E, n_acc []) from the call's device arrays and
+    ``static`` = (max_span, huber_delta, cg_iters). The local system, the
+    right-hand side and diagonal, PCG, the NaN guard, the candidate's
+    energy and the accept step; ``psum`` sums over a mesh's ranks. Returns
+    the next (Ts, lam, prev_E, n_acc)."""
+    max_span, huber_delta, cg_iters = static
+    r, J = _local_system(Ts, reps, zidx, zmask, w, p, p_t, huber_delta, pm, max_span)
+    b, diag = psum(torch.stack(_rhs_and_diag(J, r, inc, inc_ok)))
+    delta = _pcg(lambda v: psum(_matvec(J, zidx, v, inc, inc_ok)), b, diag, lam,
+                 cg_iters)  # [Z, 6]
+    bad = ~torch.all(torch.isfinite(delta))
+    delta = torch.where(bad, 0.0, delta)
+    Ts_cand = torch.einsum("zij,zjk->zik", Ts, se3.se3_exp(delta))
+    cand_E = _energy(Ts_cand, reps, p, p_t, w, pm, max_span, huber_delta, psum)
+    accept = (cand_E < prev_E) & ~bad
+    return (torch.where(accept, Ts_cand, Ts), torch.where(accept, lam / 2.0, lam * 5.0),
+            torch.where(accept, cand_E, prev_E), n_acc + accept.to(torch.int32))
+
+
 def global_ba_solve(
     T0s: torch.Tensor,
     reps: np.ndarray,
@@ -221,6 +251,7 @@ def global_ba_solve(
     cg_iters: int = 32,
     huber_delta: float = 1.0,
     mesh=None,
+    graph: bool | None = None,
 ) -> GlobalBAResult:
     """Joint LM over the full zeta chain, on T0s's device with no host sync.
 
@@ -237,7 +268,18 @@ def global_ba_solve(
     energy falls (lambda / 2) and rejects it otherwise (lambda x 5), with
     a NaN guard; ``r_norm`` is the square root of the last accepted
     energy.
+
+    ``graph`` (``_graphs.wanted``): ``None`` replays each iteration as a
+    CUDA graph cached per (max_span, huber_delta, cg_iters, shapes) for
+    CUDA inputs: iteration 1 of a new shape runs eagerly, iteration 2
+    captures, the rest replay, and a later solve of the same shapes
+    replays from its first iteration (the reference compiles the whole
+    ``lax.scan`` once). A ``mesh`` keeps the solve eager; ``True`` raises
+    where it cannot capture; ``False`` runs eagerly. The state carried
+    between iterations stays on the device, and the result is the eager
+    loop's bit for bit.
     """
+    graphed = _graphs.wanted(T0s, graph, None if mesh is None else "a mesh")
     Z = T0s.shape[0]
     dtype, dev = T0s.dtype, T0s.device
     reps_np = np.asarray(reps, np.int32)
@@ -263,28 +305,18 @@ def global_ba_solve(
     inc = to_device(inc_np, torch.int64, dev)
     inc_ok = to_device(inc_ok_np, torch.bool, dev)
 
-    def energy(Ts):
-        T0r = _compose(prefix_band(Ts, max_span), reps_t)
-        r = epipolar.residual_from_T(T0r, p, p_t, huber_delta, pm)
-        return psum(torch.sum((r * w[:, None]) ** 2))
+    data = (reps_t, zidx, zmask, inc, inc_ok, w, p, p_t, pm)
+    static = (max_span, huber_delta, cg_iters)
 
     Ts = T0s
     lam = torch.full((), lambda0, dtype=dtype, device=dev)
-    prev_E = energy(T0s)
+    prev_E = _energy(T0s, reps_t, p, p_t, w, pm, max_span, huber_delta, psum)
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_iters):
-        r, J = _local_system(Ts, reps_t, zidx, zmask, w, p, p_t, huber_delta, pm,
-                             max_span)
-        b, diag = psum(torch.stack(_rhs_and_diag(J, r, inc, inc_ok)))
-        delta = _pcg(lambda v: psum(_matvec(J, zidx, v, inc, inc_ok)), b, diag, lam,
-                     cg_iters)  # [Z, 6]
-        bad = ~torch.all(torch.isfinite(delta))
-        delta = torch.where(bad, 0.0, delta)
-        Ts_cand = torch.einsum("zij,zjk->zik", Ts, se3.se3_exp(delta))
-        cand_E = energy(Ts_cand)
-        accept = (cand_E < prev_E) & ~bad
-        Ts = torch.where(accept, Ts_cand, Ts)
-        lam = torch.where(accept, lam / 2.0, lam * 5.0)
-        prev_E = torch.where(accept, cand_E, prev_E)
-        n_acc = n_acc + accept.to(torch.int32)
+        if graphed:
+            Ts, lam, prev_E, n_acc = _graphs.run(_lm_iteration, static, Ts, lam, prev_E,
+                                                 n_acc, *data)
+        else:
+            Ts, lam, prev_E, n_acc = _lm_iteration(static, Ts, lam, prev_E, n_acc, *data,
+                                                   psum=psum)
     return GlobalBAResult(T0s=Ts, r_norm=torch.sqrt(prev_E), n_accepted=n_acc, lam=lam)

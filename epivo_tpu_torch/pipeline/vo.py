@@ -159,16 +159,48 @@ def _klt_matches(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
     return p0, p1, flow.status, n_tracked, kp.xy, flow.xy
 
 
+def _captured_samples(draw, status, config: VOConfig, drawn: bool):
+    """The samples of a captured step: the Gumbel top-k over the matched
+    mask ``status`` of the uniforms ``draw`` [B, n_hyp, K] when ``drawn``
+    (as in :func:`ransac._sample_indices`), else ``draw`` itself, the
+    samples [B, n_hyp, m]."""
+    if not drawn:
+        return draw
+    return ransac_mod.gumbel_top_k(draw, status, ransac_mod.SAMPLE_SIZE[
+        config.ransac.solver], device=status.device)
+
+
 def _klt_graphed(static, img0, img1, draw):
     """The captured KLT step: ``static`` = (config, use_kernel, drawn);
     ``draw`` is the uniforms [B, n_hyp, K] of :func:`ransac.draw_uniforms`
-    (``drawn``: the Gumbel top-k over the tracked mask runs here, as in
-    :func:`ransac._sample_indices`) or the samples [B, n_hyp, m]."""
+    (``drawn``) or the samples [B, n_hyp, m]."""
     config, use_kernel, drawn = static
-    p0, p1, status, n_tracked, xy0, xy1 = _klt_matches(img0, img1, config, use_kernel)
-    samples = (ransac_mod.gumbel_top_k(draw, status, ransac_mod.SAMPLE_SIZE[
-        config.ransac.solver], device=p0.device) if drawn else draw)
-    return _two_view_tail(p0, p1, status, n_tracked, xy0, xy1, None, config, samples)
+    m = _klt_matches(img0, img1, config, use_kernel)
+    return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn))
+
+
+def _orb_graphed(static, img0, img1, draw):
+    """The captured ORB step, with the 8-match gate; arguments as in
+    :func:`_klt_graphed`."""
+    config, use_kernel, drawn = static
+    m = _orb_matches(img0, img1, config, use_kernel)
+    return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn),
+                          too_few=m[3] < 8)
+
+
+def _run_graphed(step, img0, img1, generator, config: VOConfig, ransac_samples,
+                 use_kernel, K: int) -> VOStepResult:
+    """``step`` (:func:`_klt_graphed` or :func:`_orb_graphed`) through the
+    graph cache: on injected samples, or on uniforms [B, n_hyp, K] drawn
+    from ``generator`` before each replay (K: the step's match count)."""
+    if ransac_samples is not None:
+        return _graphs.run(step, (config, use_kernel, False), img0, img1, ransac_samples)
+    if generator is None:
+        raise ValueError("a graphed step needs a generator or ransac_samples")
+    shape = (img0.shape[0], config.ransac.hypotheses(), K)
+    draw = _graphs.Fill(shape, torch.float32, img0.device, lambda out: (
+        ransac_mod.draw_uniforms(generator, shape[1], shape[2], shape[:1], out=out)))
+    return _graphs.run(step, (config, use_kernel, True), img0, img1, draw)
 
 
 def _eager_reason(img0, generator, hyp_mesh) -> str | None:
@@ -218,20 +250,11 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
     drawn_by = generator if ransac_samples is None else None
     if _graphs.wanted(img0, graph, _eager_reason(img0, drawn_by, hyp_mesh),
                       default=use_kernel is not False):
-        if ransac_samples is not None:
-            return _graphs.run(_klt_graphed, (config, use_kernel, False), img0, img1,
-                               ransac_samples)
-        if generator is None:
-            raise ValueError("vo_step_batched needs a generator or ransac_samples")
-        B, H, W = img0.shape
-        shape = (B, config.ransac.hypotheses(),
-                 fast.n_keypoints(H, W, config.frontend.max_keypoints))
-        draw = _graphs.Fill(shape, torch.float32, img0.device, lambda out: (
-            ransac_mod.draw_uniforms(generator, shape[1], shape[2], shape[:1], out=out)))
-        return _graphs.run(_klt_graphed, (config, use_kernel, True), img0, img1, draw)
-    p0, p1, status, n_tracked, xy0, xy1 = _klt_matches(img0, img1, config, use_kernel)
-    return _two_view_tail(p0, p1, status, n_tracked, xy0, xy1,
-                          generator, config, ransac_samples, hyp_mesh=hyp_mesh)
+        H, W = img0.shape[-2:]
+        return _run_graphed(_klt_graphed, img0, img1, generator, config, ransac_samples,
+                            use_kernel, fast.n_keypoints(H, W, config.frontend.max_keypoints))
+    m = _klt_matches(img0, img1, config, use_kernel)
+    return _two_view_tail(*m, generator, config, ransac_samples, hyp_mesh=hyp_mesh)
 
 
 def orb_associate(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
@@ -263,10 +286,23 @@ def orb_associate(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
     return kp0, torch.gather(kp.xy[B:], 1, tgt), m.valid
 
 
+def _orb_matches(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
+                 use_kernel: bool | None):
+    """ORB association of B pairs in :func:`_klt_matches`'s form: (p0, p1
+    [B, K, 3] normalized, match mask [B, K], match count [B], source and
+    target pixels [B, K, 2])."""
+    K_inv = config.camera.K_inv(img0.dtype, img0.device)
+    kp0, tgt_xy, status = orb_associate(img0, img1, config, use_kernel)
+    n_matches = torch.sum(status, dim=-1).to(torch.int32)
+    return (cam.normalize(kp0.xy, K_inv), cam.normalize(tgt_xy, K_inv), status, n_matches,
+            kp0.xy, tgt_xy)
+
+
 def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
                         generator: torch.Generator | None, config: VOConfig,
                         ransac_samples: torch.Tensor | None = None,
-                        use_kernel: bool | None = None, hyp_mesh=None) -> VOStepResult:
+                        use_kernel: bool | None = None, hyp_mesh=None,
+                        graph: bool | None = None) -> VOStepResult:
     """B two-view steps with ORB descriptor matching instead of KLT
     tracking (the reference's ``vo_step_orb``, pair axis written out).
     img0/img1: [B, H, W] float32.
@@ -278,16 +314,19 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
     accuracy. On CUDA images a single-scale call launches the FAST
     candidate kernel once and the window-extraction kernel once, and
     makes no host sync. ``n_tracked`` counts the matches.
-    ``ransac_samples``, ``use_kernel`` and ``hyp_mesh`` as in
-    :func:`vo_step_batched`.
+    ``ransac_samples``, ``use_kernel``, ``hyp_mesh`` and ``graph`` as in
+    :func:`vo_step_batched`: association, the gate and the tail are
+    captured together, and the uniforms behind the samples are drawn
+    before each replay (their K from :func:`orb.n_keypoints`).
     """
-    K_inv = config.camera.K_inv(img0.dtype, img0.device)
-    kp0, tgt_xy, status = orb_associate(img0, img1, config, use_kernel)
-    n_matches = torch.sum(status, dim=-1).to(torch.int32)
-    p0 = cam.normalize(kp0.xy, K_inv)
-    p1 = cam.normalize(tgt_xy, K_inv)
-    return _two_view_tail(p0, p1, status, n_matches, kp0.xy, tgt_xy, generator,
-                          config, ransac_samples, too_few=n_matches < 8,
+    drawn_by = generator if ransac_samples is None else None
+    if _graphs.wanted(img0, graph, _eager_reason(img0, drawn_by, hyp_mesh),
+                      default=use_kernel is not False):
+        H, W = img0.shape[-2:]
+        return _run_graphed(_orb_graphed, img0, img1, generator, config, ransac_samples,
+                            use_kernel, orb.n_keypoints(H, W, config.frontend))
+    m = _orb_matches(img0, img1, config, use_kernel)
+    return _two_view_tail(*m, generator, config, ransac_samples, too_few=m[3] < 8,
                           hyp_mesh=hyp_mesh)
 
 
@@ -312,13 +351,13 @@ def vo_step(img0: torch.Tensor, img1: torch.Tensor,
 def vo_step_orb(img0: torch.Tensor, img1: torch.Tensor,
                 generator: torch.Generator | None, config: VOConfig,
                 ransac_samples: torch.Tensor | None = None,
-                use_kernel: bool | None = None) -> VOStepResult:
+                use_kernel: bool | None = None, graph: bool | None = None) -> VOStepResult:
     """One two-view step with ORB matching: :func:`vo_step_orb_batched`
     with B = 1. img0/img1: [H, W] float32; ``ransac_samples`` [n_hyp, m]
-    as in :func:`vo_step`."""
+    and ``graph`` as in :func:`vo_step`."""
     out = vo_step_orb_batched(img0[None], img1[None], generator, config,
                               None if ransac_samples is None else ransac_samples[None],
-                              use_kernel)
+                              use_kernel, graph=graph)
     return VOStepResult(*(f[0] for f in out))
 
 

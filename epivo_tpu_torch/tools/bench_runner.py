@@ -9,7 +9,8 @@ ahead of time and held in memory: the photoreal corridor
 configuration (``bench.py``'s: FAST 40, 512 keypoints, 4 KLT levels,
 512 hypotheses, 48 LM points). The render is fixture generation, not
 pipeline work, and is left out. For each batch size and depth: one warm
-run on ``batch + 1`` frames, then ``--repeats`` timed runs (host clock,
+run on ``2 * batch + 1`` frames (two calls of the batch's step: the graph
+cache captures a key on its second call), then ``--repeats`` timed runs (host clock,
 the result fetched to the host), reported as pairs/s of the fastest and
 every wall time.
 
@@ -79,8 +80,8 @@ def main(argv=None) -> dict:
 
     runs, ate = [], None
     for batch in (int(b) for b in args.batches.split(",")):
-        runners.run_vo_sequence(frames[:batch + 1], cfg, batch=batch, collect_cloud=False,
-                                device=dev)
+        runners.run_vo_sequence(frames[:2 * batch + 1], cfg, batch=batch,
+                                collect_cloud=False, device=dev)
         n_dispatch = -(-(len(frames) - 1) // batch)
         for depth in (int(d) for d in args.depths.split(",")):
             walls = []

@@ -105,7 +105,7 @@ class StubCapture:
     def capture(self, fn, static, inputs, device):
         self.captures += 1
         out = fn(static, *inputs)
-        return StubGraph(fn, static, inputs, out), out, 0
+        return StubGraph(fn, static, inputs, out), out, 0, 0.0
 
 
 @pytest.fixture
@@ -281,9 +281,10 @@ def test_cache_keys_configs_shapes_and_optional_inputs():
     for static, args in (((2.0,), (x8,)), ((2.0,), (x8,)), ((3.0,), (x8,)),
                          ((2.0,), (x4,)), ((2.0,), (torch.ones(8, 5),)),
                          ((2.0,), (x8.double(),)), ((2.0,), (x8, x4)), ((2.0,), (x8, None))):
-        cache(_bump, static, *args)
+        for _ in range(2):  # a key captures on its second call
+            cache(_bump, static, *args)
     # Two calls shared one key; a None differs from an absent argument.
-    assert cap.captures == len(cache.entries) == 7
+    assert cap.captures == len(cache.entries) == 7 and not cache.seen
     # A replay gives what the eager call gives, as a fresh tensor.
     out = cache(_bump, (3.0,), torch.full((8, 3), 2.0))
     assert torch.equal(out[0], torch.full((8, 3), 6.0)) and cap.captures == 7
@@ -297,11 +298,15 @@ def test_cache_evicts_the_least_recently_used_after_16():
     xs = [torch.ones(n + 1) for n in range(17)]
     for x in xs[:16]:
         cache(_bump, (1.0,), x)
+        cache(_bump, (1.0,), x)  # the second call captures
     cache(_bump, (1.0,), xs[0])  # a hit: xs[0] becomes the most recent
-    cache(_bump, (1.0,), xs[16])  # the 17th key evicts xs[1]'s
+    cache(_bump, (1.0,), xs[16])
+    cache(_bump, (1.0,), xs[16])  # the 17th captured key evicts xs[1]'s
     assert len(cache.entries) == _graphs.MAX_ENTRIES == 16
     shapes = [k[2][0][0] for k in cache.entries]
     assert (2,) not in shapes and (1,) in shapes and (17,) in shapes
+    cache(_bump, (1.0,), xs[1])  # evicted: seen anew, eager
+    assert cap.captures == 17
     cache(_bump, (1.0,), xs[1])
     assert cap.captures == 18
 
@@ -310,14 +315,17 @@ def test_replays_add_the_captured_launches():
     cache = _graphs.GraphCache(capturer=StubCapture())
     x = torch.ones(3)
     c0, l0 = tfast.CAND_LAUNCHES, tklt.LEVEL_LAUNCHES
-    cache(_bump, (1.0,), x)  # the eager first call launches; the capture does not
+    cache(_bump, (1.0,), x)  # the eager first call launches
     assert (tfast.CAND_LAUNCHES - c0, tklt.LEVEL_LAUNCHES - l0) == (2, 1)
+    assert not cache.entries
+    cache(_bump, (1.0,), x)  # the second call's eager run launches; its capture does not
+    assert (tfast.CAND_LAUNCHES - c0, tklt.LEVEL_LAUNCHES - l0) == (4, 2)
     entry = next(iter(cache.entries.values()))
     assert {a: n for (_, a), n in entry.launches.items() if n} == {
         "CAND_LAUNCHES": 2, "LEVEL_LAUNCHES": 1}
     for _ in range(3):
         cache(_bump, (1.0,), x)
-    assert (tfast.CAND_LAUNCHES - c0, tklt.LEVEL_LAUNCHES - l0) == (8, 4)
+    assert (tfast.CAND_LAUNCHES - c0, tklt.LEVEL_LAUNCHES - l0) == (10, 5)
     assert entry.replays == 3
 
 
@@ -350,9 +358,10 @@ def test_graphed_step_matches_eager(pairs, stub_cache, monkeypatch, solver, meth
     monkeypatch.setattr(transac, "ransac_essential", lambda *a, **kw: (
         seen.append(kw["samples"]), ransac_essential(*a, **kw))[1])
     c0, l0 = tfast.CAND_LAUNCHES, tklt.LEVEL_LAUNCHES
-    for _ in range(2):  # the eager first call, then a replay
+    for _ in range(3):  # the eager first call, the capture's eager run, a replay
         _assert_equal(tvo.vo_step_batched(src, tgt, gen(), big), eager)
     assert stub_cache.capturer.captures == 1
+    assert next(iter(stub_cache.entries.values())).replays == 1
     # The captured top-k draws the eager path's samples: the same uniforms,
     # masked by the tracked points.
     fc = big.frontend
@@ -366,19 +375,23 @@ def test_graphed_step_matches_eager(pairs, stub_cache, monkeypatch, solver, meth
     assert torch.equal(seen[0], want) and torch.equal(seen[-1], want)
     # A generator carried on: each call draws the next uniforms, as eagerly.
     g_e, g_g = gen(), gen()
-    for _ in range(2):
+    for _ in range(3):
         _assert_equal(tvo.vo_step_batched(src, tgt, g_g, cfg),
                       tvo.vo_step_batched(src, tgt, g_e, cfg, graph=False))
     # Injected samples are a static input, and another key.
     samples = transac._sample_indices(gen(), 16, 128, None,
                                       transac.SAMPLE_SIZE[solver], lead=(2,))
-    _assert_equal(tvo.vo_step_batched(src, tgt, None, cfg, ransac_samples=samples),
-                  tvo.vo_step_batched(src, tgt, None, cfg, ransac_samples=samples,
-                                      graph=False))
+    for _ in range(3):
+        _assert_equal(tvo.vo_step_batched(src, tgt, None, cfg, ransac_samples=samples),
+                      tvo.vo_step_batched(src, tgt, None, cfg, ransac_samples=samples,
+                                          graph=False))
     # B = 1 (vo_step) is another key.
-    one = tvo.vo_step(src[1], tgt[1], gen(), cfg)
-    _assert_equal(one, tvo.vo_step(src[1], tgt[1], gen(), cfg, graph=False))
+    for _ in range(3):
+        one = tvo.vo_step(src[1], tgt[1], gen(), cfg)
+        _assert_equal(one, tvo.vo_step(src[1], tgt[1], gen(), cfg, graph=False))
     assert stub_cache.capturer.captures == 4 and len(stub_cache.entries) == 4
+    # Each key's third call was a replay, checked against eager above.
+    assert [e.replays for e in stub_cache.entries.values()] == [1, 1, 1, 1]
     # The plain path keeps no launch count, eager or replayed.
     assert (tfast.CAND_LAUNCHES, tklt.LEVEL_LAUNCHES) == (c0, l0)
 
@@ -393,18 +406,22 @@ def test_graphed_step_keys_batch_and_image_shapes(pairs, stub_cache):
     tvo.vo_step_batched(src, tgt, gen, dataclasses.replace(
         cfg, ransac=dataclasses.replace(cfg.ransac, n_hyp=32)))
     tvo.vo_step_batched(src, tgt, gen, cfg)
-    assert stub_cache.capturer.captures == len(stub_cache.entries) == 4
+    # The first key captured on its second call; the other three were seen once.
+    assert stub_cache.capturer.captures == len(stub_cache.entries) == 1
+    assert len(stub_cache.seen) == 3
 
 
 def test_graphed_ba_matches_eager_and_reference(stub_cache):
     T0s, p, p_t, w, m = _ba_inputs()
     spec, cfg = tba.mono_window_spec(3), _ba_config()
     eager = tba.ba_windows(T0s, spec, p, p_t, w, m, cfg, graph=False)
-    for _ in range(2):
+    for _ in range(3):  # eager, the capture's eager run, a replay
         _assert_equal(tba.ba_windows(T0s, spec, p, p_t, w, m, cfg), eager)
-    _assert_equal(tba.ba_windows(T0s, spec, p, p_t, None, m, cfg),
-                  tba.ba_windows(T0s, spec, p, p_t, None, m, cfg, graph=False))
+    for _ in range(3):
+        _assert_equal(tba.ba_windows(T0s, spec, p, p_t, None, m, cfg),
+                      tba.ba_windows(T0s, spec, p, p_t, None, m, cfg, graph=False))
     assert stub_cache.capturer.captures == 2
+    assert [e.replays for e in stub_cache.entries.values()] == [1, 1]
     # The graphed solve against the JAX package's (tests/test_torch_ba.py's
     # tolerances).
     ref = jba.ba_windows(*(jnp.asarray(x.numpy()) for x in (T0s,)), jba.mono_window_spec(3),
@@ -414,6 +431,8 @@ def test_graphed_ba_matches_eager_and_reference(stub_cache):
                              n_points=32, max_iters=30, revert_r_norm=1e-2),
                              window_size=3, stride=2))
     out = tba.ba_windows(T0s, spec, p, p_t, w, m, cfg)
+    _assert_equal(out, eager)
+    assert [e.replays for e in stub_cache.entries.values()] == [1, 2]
     rot_dir = lambda T: (np.asarray(T, np.float64)[..., :3, :3],
                          np.asarray(T, np.float64)[..., :3, 3]
                          / np.linalg.norm(np.asarray(T, np.float64)[..., :3, 3], axis=-1,
