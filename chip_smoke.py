@@ -97,16 +97,23 @@ Phases, each reported on its own line:
    with the stage wall of both, the card against the port's CPU and a
    bit-equal repeat;
 13. multi-device on one card, on phase 9's frames, seed-0 run and pairs
-   (rendering nothing): (a) NCCL at a world size of 1, where
-   _extract_pairs on the first 64 pairs (two 32-pair calls), _solve_windows
-   on seed 0's windows and refine_global on its zetas and pairs must be
-   bit-equal with a mesh and without one; (b) two gloo ranks sharing the
+   (rendering nothing): (a) NCCL at a world size of 1, every mesh path
+   graphed: _extract_pairs on the first 64 pairs (two 32-pair calls) twice,
+   its key replaying, _solve_windows on seed 0's windows, and refine_global
+   on its zetas and pairs twice, the mesh's LM iteration captured with its
+   NCCL all_reduces inside and replayed; each bit-equal to the same mesh
+   path run eagerly and to no mesh, with launches and collectives per
+   replay, capture seconds, pool, the collectives of a graphed and an eager
+   polish and graphed against eager walls; (b) two gloo ranks sharing the
    card (torch.multiprocessing spawn, tools/mesh_checks.card_check): the
    64 pairs at 16 pairs per rank per call (each rank's launches counted in
    that run: fast_cand 1 / klt_level 4 per call, the ORB retry pass apart;
-   no host sync in the step), the window solve on the 512 windows of
-   bench_ba_workload.npz, the constraint-sharded global polish and the
-   hypothesis-split RANSAC on the corridor pair, each against one rank;
+   no host sync in the step; the step's key captured on its second call),
+   the same extraction with every step eager (bit-equal), the window solve
+   on the 512 windows of bench_ba_workload.npz (eager, captured, replayed:
+   bit-equal), the constraint-sharded global polish and the
+   hypothesis-split RANSAC on the corridor pair (eager: gloo collectives
+   inside), each against one rank; each rank's stage walls and graph keys;
    batch-shape controls (rank 0's lanes and windows in one process without
    a mesh at the rank's B and W); the collectives rank 0 ran, by backend
    and tensor device; and fast_cand and klt_level against their plain
@@ -133,7 +140,9 @@ Phases, each reported on its own line:
 
 The step, ORB step, BA and global-polish calls of every phase run graphed
 (graph=None on the card), so phases 9-15 time and count replays from a
-key's third call on.
+key's third call on; on a mesh too, except where a gloo mesh's
+collective would sit inside the graph (phase 13 (b)'s polish and hyp
+split).
 
 Before the last two lines, one JSON object holds the slice's graph checks, the batched, BA, ORB,
 sequence, stereo, loop, five-point, global, multi-device, entry-point and
@@ -333,7 +342,8 @@ FIVE_MATCH, FIVE_MATCH_TOL, FIVE_EXACT, FIVE_CONTROL_SLACK = 0.95, 1e-3, 1e-12, 
 # Multi-device on one card (ROADMAP A14b): the first MULTI_PAIRS pairs of
 # phase 9's seed-0 run (two SEQ_BATCH-pair calls), its windows, zetas and
 # pairs, bench_ba_workload.npz and the corridor pair. (a) NCCL at a world
-# size of 1: every mesh path bit-equal to the path without a mesh. (b) two
+# size of 1: every mesh path graphed, bit-equal to the same path run
+# eagerly and to the path without a mesh. (b) two
 # gloo ranks sharing the card: the extraction's median pose delta against
 # one rank below MULTI_POSE_MEDIAN (the reference's 1-vs-8 bound of its
 # sharded frontend, __graft_entry__.py:171); the window solve held to one
@@ -772,6 +782,7 @@ KERNEL_NAMES = {"fast": "fast_score_kernel", "fast_cand": "fast_candidates_kerne
                 "lk": "lk_iterate_kernel"}
 NO_LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 GRAPH_TURNS = 2  # host-clock calls of each path per turn (eager, graph, graph, eager)
+PROFILE_TRIES = 3  # profiles of one replay each, for the profiler's dropped records
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -870,10 +881,23 @@ def graph_check(what: str, call, per_call: dict, turns: int = GRAPH_TURNS) -> di
     launches = launches_now()
     _check(launches == per_call, f"graph: {what}: launches per replay {launches} != "
            f"{per_call}")
-    prof = replay_profile(lambda: call(None))
-    _check(prof["kernels"] == per_call, f"graph: {what}: the profile of one replay shows "
-           f"{prof['kernels']}, not {per_call}")
+    # torch.profiler's CUPTI records drop a kernel of a replay now and then
+    # (a replay's first kernel in one run's phase 6, a fast_cand in
+    # another's phase 8): up to PROFILE_TRIES profiles of one replay each, the first
+    # whose kernel names match the accounting. A kernel the replay does not
+    # launch is missing from every one of them.
+    missed = []
+    for _ in range(PROFILE_TRIES):
+        prof = replay_profile(lambda: call(None))
+        if prof["kernels"] == per_call:
+            break
+        missed.append(prof["kernels"])
+    _check(prof["kernels"] == per_call, f"graph: {what}: {PROFILE_TRIES} profiles of one "
+           f"replay each show {missed}, not {per_call}")
     _check(prof["device_activities"] > 0, f"graph: {what}: the profiler saw no device work")
+    if missed:
+        print(f"graph: {what}: {len(missed)} profile(s) of a replay dropped kernel records "
+              f"({missed}); the next agreed with the accounting")
     times = {"eager": [], "graph": []}
     for turn in ("eager", "graph", "graph", "eager"):
         times[turn] += [host_ms(lambda: call(False if turn == "eager" else None))
@@ -1468,28 +1492,34 @@ def phase_ba(dev) -> dict:
     # windows: on the rest rounding alone moves the optimum along a flat
     # valley. The control line below measures that: the CPU against
     # itself with the initial poses perturbed by 1e-7 (about one float32
-    # rounding), and the spread of the workload's copies of each window.
+    # rounding), on the workload's first copy of each of its distinct
+    # windows (the other copies are these with 1e-6 jitter, so one copy
+    # shows what rounding alone does for an eighth of the CPU time; its
+    # share stands beside BA_WITHIN), and the spread of the workload's
+    # copies of each window.
     R_c, dir_c = _rot_dir(ref.T_opt)
 
-    def deviations(res):
+    def deviations(res, n=None):
         R_x, dir_x = _rot_dir(res.T_opt.cpu())
-        dR = (R_x - R_c).abs().amax((1, 2, 3))
-        ddir = (dir_x - dir_c).abs().amax((1, 2))
-        dacc = (res.n_accepted.cpu() - ref.n_accepted).abs()
+        dR = (R_x - R_c[:n]).abs().amax((1, 2, 3))
+        ddir = (dir_x - dir_c[:n]).abs().amax((1, 2))
+        dacc = (res.n_accepted.cpu() - ref.n_accepted[:n]).abs()
         within = (dR <= BA_R_TOL) & (ddir <= BA_DIR_TOL) & (dacc <= BA_ACC_TOL)
         return dR, ddir, dacc, within
 
     dR, ddir, dacc, within = deviations(out)
-    g = torch.Generator().manual_seed(SEED)
-    jitter = 1e-7 * torch.randn(cpu["T0s"].shape, generator=g)
-    *_, within_ctl = deviations(run({**cpu, "T0s": cpu["T0s"] + jitter}))
     n_unique = json.loads(str(z["workload"]))["ba"]["unique_windows"]
+    g = torch.Generator().manual_seed(SEED)
+    jitter = 1e-7 * torch.randn(cpu["T0s"][:n_unique].shape, generator=g)
+    *_, within_ctl = deviations(run({**{k: v[:n_unique] for k, v in cpu.items()},
+                                     "T0s": cpu["T0s"][:n_unique] + jitter}), n_unique)
     copies = lambda x: x.reshape((n_win // n_unique, n_unique) + x.shape[1:])
     spread = lambda x: float((copies(x) - copies(x)[:1]).abs().max())
     print(f"ba: control on the CPU: initial poses + 1e-7 keep {int(within_ctl.sum())} "
-          f"of {n_win} windows within the tolerances; the workload's {n_win // n_unique} "
-          f"copies of each window (1e-6 jitter) spread by |dR| {spread(R_c):.3g}, dir "
-          f"{spread(dir_c):.3g}")
+          f"of the {n_unique} distinct windows within the tolerances "
+          f"({float(within_ctl.double().mean()):.4f}, against BA_WITHIN {BA_WITHIN}); the "
+          f"workload's {n_win // n_unique} copies of each window (1e-6 jitter) spread by "
+          f"|dR| {spread(R_c):.3g}, dir {spread(dir_c):.3g}")
     r_g, r_c = out.r_norm.cpu(), ref.r_norm
     _check(bool(((r_g - r_c).abs() <= BA_R_ATOL + BA_R_RTOL * r_c.abs()).all()),
            f"BA r_norm card vs CPU: max diff {float((r_g - r_c).abs().max()):.3g}")
@@ -2828,6 +2858,125 @@ def global_graph_check(seed: int, res, dev) -> dict:
                 device_activities=prof["device_activities"], device_ms=prof["device_ms"])
 
 
+@contextlib.contextmanager
+def all_eager():
+    """Every graphed entry point the mesh paths call run with graph=False."""
+    from epivo_tpu_torch.parallel import global_ba as gba
+    from epivo_tpu_torch.pipeline import ba, vo
+
+    eager = lambda fn: lambda *a, **kw: fn(*a, **{**kw, "graph": False})
+    with patched(vo, "vo_step_batched", eager(vo.vo_step_batched)), \
+            patched(vo, "vo_step_orb_batched", eager(vo.vo_step_orb_batched)), \
+            patched(ba, "ba_windows", eager(ba.ba_windows)), \
+            patched(gba, "global_ba_solve", eager(gba.global_ba_solve)):
+        yield
+
+
+def mesh_world1(sub, pairs, vo_cfg, extract: dict, windows: tuple, bcfg, zetas, pair_data,
+                gcfg, dev) -> dict:
+    """Phase 13 (a): the mesh paths at an NCCL world size of 1 in this
+    process, graphed and eagerly (graph=False), against no mesh:
+    _extract_pairs twice (the second run all replays of the B = SEQ_BATCH
+    key), _solve_windows, and refine_global twice (the mesh's own LM
+    iteration key: iterations 3-20 of the first polish replay, every one of
+    the second; its all_reduces inside the graph). Host wall of each
+    graphed and eager run; per replay launches and collectives of the
+    extraction's key and the polish's; the collectives a graphed and an
+    eager polish ran. The process group is destroyed before returning."""
+    from epivo_tpu_torch import _graphs
+    from epivo_tpu_torch.parallel import mesh as mesh_mod, multihost
+    from epivo_tpu_torch.pipeline import runners, stream
+
+    T0s, spec, wp, wpt, wreps, pmask = windows
+    ex = lambda m: runners._extract_pairs(stream.FrameStream(list(sub)), pairs, vo_cfg, 0,
+                                          mesh=m, device=dev, **extract)
+    sw = lambda m: runners._solve_windows(T0s, spec, wp, wpt, wreps, pmask, bcfg, mesh=m,
+                                          device=dev)
+    gz = lambda m: runners.refine_global(zetas, pair_data, gcfg, mesh=m, device=dev)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def collectives(fn):
+        before = _graphs.collectives()
+        out = fn()
+        return out, {k: v - before.get(k, 0) for k, v in _graphs.collectives().items()
+                     if v != before.get(k, 0)}
+
+    cache = _graphs.CACHE
+    entry_of = lambda fn_name, lead, meshed, cfg=None: next(
+        (e for k, e in cache.entries.items() if k[0].__name__ == fn_name
+         and k[2][0][0][0] == lead and (k[1][-1] is not None) == meshed
+         and (cfg is None or k[1][0] == cfg)), None)
+    n_zeta, G = zetas.shape[0], gcfg.global_ba
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = mesh_mod.make_mesh(1, 1, device_type="cuda")
+        _check(mesh_mod.capturable(mesh), "an NCCL mesh is not capturable")
+        one = ex(None)
+        key = entry_of("_klt_graphed", SEQ_BATCH, False, vo_cfg)
+        replays0 = key.replays if key is not None else 0
+        ex_g = [wall(lambda: ex(mesh)) for _ in range(2)]
+        key = entry_of("_klt_graphed", SEQ_BATCH, False, vo_cfg)
+        _check(key is not None and key.replays >= replays0 + 2 * (len(pairs) // SEQ_BATCH),
+               "the mesh extraction's B = SEQ_BATCH calls did not replay")
+        sw_none = sw(None)
+        sw_g = wall(lambda: sw(mesh))
+        gz_none = gz(None)
+        (gz_g1, c_g1), gz_g1_s = wall(lambda: collectives(lambda: gz(mesh)))
+        (gz_g2, c_g2), gz_g2_s = wall(lambda: collectives(lambda: gz(mesh)))
+        pol = entry_of("_lm_iteration", n_zeta, True)
+        _check(pol is not None and pol.replays == 2 * G.max_iters - 2,
+               f"the mesh polish's LM iteration: {None if pol is None else pol.replays} "
+               f"replays, expected {2 * G.max_iters - 2}")
+        with all_eager():
+            ex_e = wall(lambda: ex(mesh))
+            sw_e = wall(lambda: sw(mesh))
+            (gz_e, c_e), gz_e_s = wall(lambda: collectives(lambda: gz(mesh)))
+    finally:
+        torch.distributed.destroy_process_group()
+    want_c = {"all_reduce/nccl/cuda": G.cg_iters + 2}
+    _check(pol.collectives == want_c, f"the mesh polish's graph holds {pol.collectives}, "
+           f"expected {want_c}")
+    _check(c_g1 == c_g2 == c_e, f"collectives of a graphed polish {c_g1} / {c_g2}, of an "
+           f"eager one {c_e}")
+    windows_eq = lambda a, b: all(np.array_equal(x, y) for x, y in zip(a, b))
+    polish_eq = lambda a, b: bool(np.array_equal(a[0], b[0])
+                                  and float(a[1].r_norm) == float(b[1].r_norm)
+                                  and int(a[1].n_accepted) == int(b[1].n_accepted))
+    n = len(pairs)
+    equal = dict(
+        pairs_no_mesh=all(len(_pairs_equal(one, r)) == n for r, _ in ex_g),
+        pairs_eager=len(_pairs_equal(ex_g[1][0], ex_e[0])) == n,
+        windows_no_mesh=windows_eq(sw_g[0], sw_none),
+        windows_eager=windows_eq(sw_g[0], sw_e[0]),
+        global_no_mesh=polish_eq(gz_g1, gz_none) and polish_eq(gz_g2, gz_none),
+        global_eager=polish_eq(gz_g2, gz_e))
+    nz = lambda launches: {a: v for (_, a), v in launches.items() if v}
+    summary = (
+        f"_extract_pairs on {n} pairs twice (calls of {SEQ_BATCH}: the key's replays launch "
+        f"{nz(key.launches)} and run {key.collectives or 'no'} collectives, the lanes' "
+        f"gather following outside) {ex_g[0][1]:.2f} / {ex_g[1][1]:.2f} s graphed against "
+        f"{ex_e[1]:.2f} s eager; _solve_windows on {T0s.shape[0]} windows {sw_g[1]:.3f} s "
+        f"graphed against {sw_e[1]:.3f} s eager; refine_global ({n_zeta} zetas, "
+        f"{G.max_iters} LM iterations of {G.cg_iters} CG steps): the mesh's LM iteration "
+        f"captured in {pol.capture_s:.3f} s (its eager warm-up {pol.warmup_s:.3f} s), pool "
+        f"{pol.pool_bytes / 1e9:.3f} GB, per replay launches {nz(pol.launches) or 'none'} "
+        f"and collectives {pol.collectives}, {pol.replays} replays; stage {gz_g1_s:.3f} s "
+        f"(iteration 2 captures) / {gz_g2_s:.3f} s (all replays) graphed against "
+        f"{gz_e_s:.3f} s eager, each polish's collectives {c_e}; bit-equal: {equal}")
+    return dict(one=one, global_one=gz_none, equal=equal, summary=summary,
+                extract_s=[w for _, w in ex_g], extract_eager_s=ex_e[1], windows_s=sw_g[1], windows_eager_s=sw_e[1],
+                global_s=[gz_g1_s, gz_g2_s], global_eager_s=gz_e_s,
+                global_capture_s=pol.capture_s, global_pool_gb=pol.pool_bytes / 1e9,
+                global_collectives_per_replay=pol.collectives, global_collectives=c_e,
+                extract_launches_per_replay=nz(key.launches))
+
+
 def _pairs_equal(a: dict, b: dict) -> list:
     """The pairs whose every field is bit-equal in both extractions."""
     return [k for k in a if k in b and all(np.array_equal(a[k][f], b[k][f]) for f in a[k])]
@@ -2836,18 +2985,20 @@ def _pairs_equal(a: dict, b: dict) -> list:
 def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
     """The multi-device layer on one card, on phase 9's frames and seed-0
     run, phase 7's windows and the corridor pair (MULTI_* above): (a) NCCL
-    at a world size of 1, every mesh path against the path without a mesh;
-    (b) two gloo ranks sharing the card (tools/mesh_checks.card_check),
-    each stepping half of every batch: launches and host syncs per rank
-    and call, the extraction, the window solve, the global polish and the
-    hypothesis-split RANSAC against one rank, and fast_cand and klt_level
-    against their plain versions at the ranks' B. Renders nothing. Returns
-    (the phase's numbers, the kernel rows and launches per rank and call)."""
+    at a world size of 1, every mesh path graphed against the same path
+    eagerly and against the path without a mesh (mesh_world1); (b) two
+    gloo ranks sharing the card (tools/mesh_checks.card_check), each
+    stepping half of every batch: launches and host syncs per rank and
+    call, graphed against eager on each rank, the extraction, the window
+    solve, the global polish and the hypothesis-split RANSAC against one
+    rank, and fast_cand and klt_level against their plain versions at the
+    ranks' B. Renders nothing. Returns (the phase's numbers, the kernel rows
+    and launches per rank and call)."""
     from epivo_tpu_torch import ransac
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.geometry import camera as cam
-    from epivo_tpu_torch.parallel import mesh as mesh_mod, multihost
-    from epivo_tpu_torch.pipeline import ba, config, runners, scale, stream
+    from epivo_tpu_torch.parallel import multihost
+    from epivo_tpu_torch.pipeline import ba, config, runners, scale
     from epivo_tpu_torch.pipeline.config import GlobalBAConfig, VOConfig
     from epivo_tpu_torch.tools import mesh_checks, photoreal_ate
 
@@ -2894,46 +3045,53 @@ def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
                             (*ba_arrays, spec, ba_cfg), zetas, res0.pair_data, gcfg,
                             (host(p0), host(p1), host(mask), host(samples), thr),
                             backend="gloo", device="cuda")
-    # (a) NCCL, world size 1: every mesh path bit-equal to no mesh.
-    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl")
-    try:
-        mesh = mesh_mod.make_mesh(1, 1, device_type="cuda")
-        one, one_m = (runners._extract_pairs(stream.FrameStream(list(sub)), pairs, vo_cfg, 0,
-                                             mesh=m, device=dev, **extract)
-                      for m in (None, mesh))
-        sw = [runners._solve_windows(T0s, spec, wp, wpt, wreps, pmask, bcfg, mesh=m,
-                                     device=dev) for m in (None, mesh)]
-        gz = [runners.refine_global(zetas, res0.pair_data, gcfg, mesh=m, device=dev)
-              for m in (None, mesh)]
-    finally:
-        torch.distributed.destroy_process_group()
-    eq_a = dict(pairs=len(_pairs_equal(one, one_m)),
-                windows=all(np.array_equal(a, b) for a, b in zip(*sw)),
-                global_ba=bool(np.array_equal(gz[0][0], gz[1][0])
-                               and float(gz[0][1].r_norm) == float(gz[1][1].r_norm)))
-    print(f"multi: (a) {time.perf_counter() - t_phase:.1f} s; NCCL, world size 1: "
-          f"{eq_a['pairs']} of {len(pairs)} pairs bit-equal "
-          f"to no mesh; _solve_windows on seed {results[0][0]}'s {len(anchors)} windows "
-          f"bit-equal: {eq_a['windows']}; refine_global bit-equal: {eq_a['global_ba']}")
-    _check(eq_a["pairs"] == len(pairs) and eq_a["windows"] and eq_a["global_ba"],
-           f"NCCL world size 1: a mesh path differs from no mesh: {eq_a}")
+    # (a) NCCL, world size 1: every mesh path graphed (the polish with its
+    # all_reduces inside the graph), bit-equal to the same mesh path run
+    # eagerly and to no mesh.
+    world1 = mesh_world1(sub, pairs, vo_cfg, extract, (T0s, spec, wp, wpt, wreps, pmask),
+                         bcfg, zetas, res0.pair_data, gcfg, dev)
+    one, global_one = world1.pop("one"), world1.pop("global_one")
+    eq_a = world1["equal"]
+    print(f"multi: (a) {time.perf_counter() - t_phase:.1f} s; NCCL, world size 1, "
+          f"{torch.cuda.get_device_name(0)}: {world1['summary']}")
+    _check(all(eq_a.values()), f"NCCL world size 1: a mesh path differs from eager or from "
+           f"no mesh: {eq_a}")
 
     outs = ranks.results(timeout_s=300)
     spawn_s = time.perf_counter() - t0
     r0 = outs[0]
+    walls = [{k: round(v, 3) for k, v in r["wall"].items()} for r in outs]
     print(f"multi: (b) 2 ranks sharing {torch.cuda.get_device_name(0)} on {r0['backend']}; "
           f"collectives rank 0 ran (op/backend/tensor device: calls) {r0['collectives']}; "
           f"the layer stages none through the host itself (gloo copies CUDA tensors "
           f"through pinned host buffers inside the backend); ranks' wall "
-          f"{spawn_s:.1f} s (start included, beside (a)); per rank: extraction "
-          f"{r0['wall']['extract_s']:.2f} s, window solve {r0['wall']['ba_s']:.3f} s, "
-          f"global polish {r0['wall']['global_s']:.3f} s (two ranks share one card: not a "
-          f"scaling number)")
+          f"{spawn_s:.1f} s (start included, beside (a)); stage walls per rank (s; "
+          f"extraction with every step eager, then graphed; the window solve eager on its "
+          f"first call, captured on its second, replayed on its third; the polish eager: "
+          f"its sums are gloo collectives) {walls} (two ranks share one card: not a "
+          f"scaling number); rank 0's graph keys (function, first input, captured, "
+          f"replays) {r0['graphs']}")
     for r in outs[1:]:
         _check(_pairs_equal(r["pairs"], r0["pairs"]) == list(r0["pairs"])
                and all(np.array_equal(a, b) for a, b in zip(r["ba"], r0["ba"]))
                and np.array_equal(r["global"][0][0], r0["global"][0][0]),
                "the ranks' replicated results differ")
+    # Each rank: the extraction graphed gives its eager rerun bit for bit,
+    # the window solve's capture and replay its eager first call; the
+    # polish and the hyp split (gloo collectives inside) stay eager, and
+    # the ranks made the same graph keys.
+    for r in outs:
+        _check(len(_pairs_equal(r["pairs"], r["pairs_eager"])) == len(pairs),
+               "a rank's graphed extraction differs from its eager rerun")
+        _check(all(all(bits_equal(torch.from_numpy(np.asarray(a)), torch.from_numpy(
+            np.asarray(b))) for a, b in zip(again, r["ba"])) for again in r["ba_again"]),
+               "a rank's graphed window solve differs from its eager call")
+        names = {g[0]: g for g in r["graphs"]}
+        _check(names.get("_solve", (0, 0, False))[2] and r["graphs"] == r0["graphs"]
+               and names.get("_klt_graphed", (0, 0, False))[2]
+               and "_lm_iteration" not in names,
+               f"a rank's graph keys {r['graphs']}: expected the extraction's and the "
+               f"window solve's captured, the polish's absent, the same on both ranks")
 
     # Each rank's launches in its _extract_pairs(mesh=) run, counted from
     # 0 just before it: the KLT pass per call at the lanes its steps saw,
@@ -3034,10 +3192,10 @@ def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
     # The global polish against one rank (phase 12's card-vs-CPU bounds),
     # and a repeat at the same world size.
     (zg, rg), (zg2, rg2) = r0["global"]
-    dRz = np.abs(zg[:, :3, :3] - gz[0][0][:, :3, :3]).max(axis=(1, 2))
+    dRz = np.abs(zg[:, :3, :3] - global_one[0][:, :3, :3]).max(axis=(1, 2))
     dR95, dRmax = float(np.quantile(dRz, 0.95)), float(dRz.max())
     repeat = bool(np.array_equal(zg, zg2) and float(rg.r_norm) == float(rg2.r_norm))
-    dr = abs(float(rg.r_norm) - float(gz[0][1].r_norm)) / float(gz[0][1].r_norm)
+    dr = abs(float(rg.r_norm) - float(global_one[1].r_norm)) / float(global_one[1].r_norm)
     print(f"multi: refine_global, constraints over 2 ranks: per-zeta rotation difference "
           f"to one rank 95th percentile {dR95:.3g} (limit {GLOBAL_R_TOL}), largest "
           f"{dRmax:.3g} (limit {GLOBAL_R_MAX}), r_norm {100 * dr:.3f} %; repeat bit-equal: "
@@ -3069,7 +3227,9 @@ def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
                 windows_full_T=full(bd.T_opt), windows_full_T_control=full(ctl[0]),
                 global_rot_p95=dR95,
                 global_rot_max=dRmax, global_repeat=repeat, ransac_same=same,
-                spawn_s=spawn_s, rank_wall=r0["wall"], wall_s=wall,
+                spawn_s=spawn_s, rank_wall=walls, rank_graphs=r0["graphs"],
+                world1_walls={k: v for k, v in world1.items()
+                              if k not in ("equal", "summary")}, wall_s=wall,
                 backend=r0["backend"]), dict(
                     kernels=kernels, launches=per_call,
                     run={k: la0["klt"][k] + la0["retry"][k] for k in per_call},

@@ -33,10 +33,34 @@ absent); a new shape is a new key, as a new shape is a new jit.
   least recently seen key when a 17th is seen once.
 
 The kernels' launch counters (``frontend/fast.py``, ``frontend/klt.py``)
-are Python integers that a wrapper bumps when its Python runs, which a
-replay never does. So the counts a capture makes are taken back and kept
-on the entry, and every replay adds them: the counts stay the launches
-the card ran.
+and the mesh's collectives counter (``parallel/mesh.py``'s
+``COLLECTIVES``) are Python numbers that a wrapper bumps when its Python
+runs, which a replay never does. So the counts a capture makes are taken
+back and kept on the entry, and every replay adds them: the counts stay
+the launches and collectives the card ran.
+
+Mesh paths. A step may hold NCCL collectives (a hyp-split RANSAC's
+``all_gather``, the global polish's ``all_reduce``s): the graph records
+them on the mesh's communicators, which exist by then (the key's eager
+first and second calls made them), and a replay runs them. Gloo runs its
+collectives on the host, so a call whose function holds one on a gloo
+mesh runs eagerly (``wanted``'s ``blocked``: "a gloo mesh"); a mesh
+enters ``static`` as a ``parallel.mesh.MeshKey``. The capture keeps the
+default (global) error mode, in which torch 2.11 with NCCL 2.27 captures
+and replays NCCL collectives (``chip_smoke.py`` phase 13 holds the
+replays to eager).
+
+Every rank of a mesh must make the same choices for a key that holds a
+collective: a rank that captures while another runs the key eagerly or
+replays it would pair its collectives with other ones, and the ranks
+hang. The cache's choices (eager, capture, replay, evict) depend only on
+the sequence of keys a process calls, and a key only on ``fn``,
+``static`` and shapes, so the ranks of an SPMD program call keys in the
+same pattern (a ``MeshKey`` holds the rank's own groups; a ``Fill``'s key
+is its shape, never the rows it draws). So every rank
+captures a key at the same call, as long as the ranks call the same
+sequence of keys: keep a rank's own calls (a key only one rank calls)
+off the cache with ``graph=False``.
 
 Nothing falls back: an error of a capture or a replay propagates.
 """
@@ -50,6 +74,8 @@ import time
 from typing import Any, Callable, Hashable, NamedTuple
 
 import torch
+
+from epivo_tpu_torch.parallel import mesh as mesh_mod
 
 MAX_ENTRIES = 16  # as the reference's lru_cache(maxsize=16)
 
@@ -79,9 +105,9 @@ def wanted(x: torch.Tensor, graph: bool | None, blocked: str | None = None,
     """Resolve an entry point's ``graph`` switch, as ``_device.kernel_wanted``
     resolves ``use_kernel``.
 
-    ``None`` graphs a CUDA tensor unless ``blocked`` (why this call cannot
-    be captured, e.g. "a hyp_mesh") or not ``default`` (a path that runs
-    eagerly unless asked, e.g. the plain versions of the kernels).
+    ``None`` graphs a CUDA tensor unless ``blocked`` (what keeps this call
+    from a capture, e.g. "a gloo mesh") or not ``default`` (a path that
+    runs eagerly unless asked, e.g. the plain versions of the kernels).
     ``True`` on a CPU tensor or with ``blocked`` raises: nothing falls
     back. ``False`` runs eagerly: the oracle and the debugging path.
     """
@@ -89,8 +115,9 @@ def wanted(x: torch.Tensor, graph: bool | None, blocked: str | None = None,
         return x.is_cuda and blocked is None and default
     if graph:
         if blocked is not None:
-            raise ValueError(f"graph=True with {blocked}: this path runs eagerly "
-                             "(ROADMAP.md B, 'Graph slices left', 5: the mesh paths)")
+            raise ValueError(f"graph=True with {blocked}: a CUDA graph cannot hold this "
+                             "call (a gloo mesh's collectives run on the host; an NCCL "
+                             "mesh's can be captured); run it with graph=None or False")
         if not x.is_cuda:
             raise ValueError(f"graph=True needs CUDA tensors, got one on {x.device}: "
                              "CUDA graphs exist only on the card")
@@ -107,6 +134,17 @@ def _add_launches(delta: dict, sign: int = 1) -> None:
         if n:
             mod = importlib.import_module(m)
             setattr(mod, a, getattr(mod, a) + sign * n)
+
+
+def collectives() -> dict:
+    """The collectives this process ran, {"op/backend/device": calls}."""
+    return dict(mesh_mod.COLLECTIVES)
+
+
+def _add_collectives(delta: dict, sign: int = 1) -> None:
+    for k, n in delta.items():
+        if n:
+            mesh_mod.COLLECTIVES[k] = mesh_mod.COLLECTIVES.get(k, 0) + sign * n
 
 
 def _map(fn, out):
@@ -142,6 +180,7 @@ class Entry:
     warmup_s: float = 0.0  # host seconds of the eager run before the capture
     instantiate_s: float = 0.0  # the part of capture_s after the recording
     replays: int = 0
+    collectives: dict = dataclasses.field(default_factory=dict)  # per replay
 
 
 class CudaCapture:
@@ -223,6 +262,7 @@ class GraphCache:
         entry.graph.replay()
         entry.replays += 1
         _add_launches(entry.launches)
+        _add_collectives(entry.collectives)
         return _map(torch.clone, entry.outputs)
 
     def _capture(self, key, fn, static, args):
@@ -234,14 +274,17 @@ class GraphCache:
         inputs = [a if isinstance(f, Fill) or a is None
                   else torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
                   for f, a in zip(args, eager_args)]
-        before = launches()
+        before, before_c = launches(), collectives()
         t0 = time.perf_counter()
         graph, outputs, pool, instantiate_s = self.capturer.capture(fn, static, inputs, device)
         capture_s = time.perf_counter() - t0
         delta = {k: v - before[k] for k, v in launches().items()}
+        delta_c = {k: v - before_c.get(k, 0) for k, v in collectives().items()}
         _add_launches(delta, -1)  # the capture launched nothing
+        _add_collectives(delta_c, -1)  # and ran no collective
         self.entries[key] = Entry(graph, inputs, outputs, delta, capture_s, pool,
-                                  warmup_s=warmup_s, instantiate_s=instantiate_s)
+                                  warmup_s=warmup_s, instantiate_s=instantiate_s,
+                                  collectives={k: n for k, n in delta_c.items() if n})
         while len(self.entries) > self.maxsize:
             self.entries.popitem(last=False)
         return out

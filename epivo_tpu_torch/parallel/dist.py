@@ -38,7 +38,8 @@ class DistBAResult(NamedTuple):
     n_accepted: torch.Tensor  # [W] per-window LM accepted counts (gathered)
 
 
-def distributed_ba_step(mesh, spec: ba.WindowSpec, config: BAConfig):
+def distributed_ba_step(mesh, spec: ba.WindowSpec, config: BAConfig,
+                        graph: bool | None = None):
     """The windowed-BA step of every rank of ``mesh``.
 
     Returns fn(T0s [W, Z, 4, 4], p [W, R, N, 3], p_t, wreps [W, R], pmask
@@ -46,16 +47,17 @@ def distributed_ba_step(mesh, spec: ba.WindowSpec, config: BAConfig):
     divide the mesh's ``win`` axis (``runners._solve_windows`` pads by
     repeating the last window). This is the solve of the single-device
     path (:func:`ba.ba_windows`), which the sequence runners route through
-    when given a mesh.
+    when given a mesh. ``graph`` is the local solve's (``ba.ba_windows``):
+    by default a CUDA graph per window shape, on every backend, since the
+    gather and the sums follow outside it.
     """
 
     def step(T0s, p, p_t, wreps, pmask):
         W = T0s.shape[0]
         T0l, pl, ptl, wl, ml = (mesh_mod.shard_rows(x, mesh, "win")
                                 for x in (T0s, p, p_t, wreps, pmask))
-        # Eager: the mesh paths are not captured (ROADMAP.md B, graph slices).
         out = ba.ba_windows(T0l, spec, pl, ptl, wreps=wl, pmask=ml, config=config,
-                            graph=False)
+                            graph=graph)
         Wl = out.r_norm.shape[0]
         rows = torch.cat([out.T_opt.reshape(Wl, -1), out.r_norm[:, None],
                           out.reverted.to(out.r_norm.dtype)[:, None],

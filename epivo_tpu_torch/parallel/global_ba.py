@@ -216,15 +216,22 @@ def _energy(Ts, reps, p, p_t, w, pm, max_span, huber_delta, psum):
     return psum(torch.sum((r * w[:, None]) ** 2))
 
 
+def _psum(mesh):
+    """The sum over ``mesh``'s ``win`` ranks (none without a mesh)."""
+    return lambda x: mesh_mod.psum(x, mesh, "win")
+
+
 def _lm_iteration(static, Ts, lam, prev_E, n_acc, reps, zidx, zmask, inc, inc_ok, w, p,
-                  p_t, pm, psum=lambda x: x):
+                  p_t, pm):
     """One LM iteration of :func:`global_ba_solve`: the carried state (Ts
     [Z, 4, 4]; lam, prev_E, n_acc []) from the call's device arrays and
-    ``static`` = (max_span, huber_delta, cg_iters). The local system, the
-    right-hand side and diagonal, PCG, the NaN guard, the candidate's
-    energy and the accept step; ``psum`` sums over a mesh's ranks. Returns
-    the next (Ts, lam, prev_E, n_acc)."""
-    max_span, huber_delta, cg_iters = static
+    ``static`` = (max_span, huber_delta, cg_iters, the mesh's ``MeshKey``
+    or None). The local system, the right-hand side and diagonal, PCG, the
+    NaN guard, the candidate's energy and the accept step, each sum over
+    the mesh's ranks one ``all_reduce`` (a captured iteration holds them
+    all). Returns the next (Ts, lam, prev_E, n_acc)."""
+    max_span, huber_delta, cg_iters, key = static
+    psum = _psum(None if key is None else key.mesh)
     r, J = _local_system(Ts, reps, zidx, zmask, w, p, p_t, huber_delta, pm, max_span)
     b, diag = psum(torch.stack(_rhs_and_diag(J, r, inc, inc_ok)))
     delta = _pcg(lambda v: psum(_matvec(J, zidx, v, inc, inc_ok)), b, diag, lam,
@@ -274,21 +281,26 @@ def global_ba_solve(
     CUDA inputs: iteration 1 of a new shape runs eagerly, iteration 2
     captures, the rest replay, and a later solve of the same shapes
     replays from its first iteration (the reference compiles the whole
-    ``lax.scan`` once). A ``mesh`` keeps the solve eager; ``True`` raises
+    ``lax.scan`` once). With a ``mesh`` on NCCL the iteration is captured
+    with its ``all_reduce``s (one per CG step and two more), keyed on
+    the mesh's groups: every rank must make the same calls
+    (``_graphs.py``); a gloo mesh keeps the solve eager. ``True`` raises
     where it cannot capture; ``False`` runs eagerly. The state carried
     between iterations stays on the device, and the result is the eager
     loop's bit for bit.
     """
-    graphed = _graphs.wanted(T0s, graph, None if mesh is None else "a mesh")
     Z = T0s.shape[0]
     dtype, dev = T0s.dtype, T0s.device
+    if mesh is not None:
+        mesh_mod.check_mesh(mesh, dev)
+    graphed = _graphs.wanted(T0s, graph,
+                             None if mesh_mod.capturable(mesh) else "a gloo mesh")
     reps_np = np.asarray(reps, np.int32)
     w = (torch.ones(reps_np.shape[0], dtype=dtype, device=dev) if wreps is None
          else wreps.to(device=dev, dtype=dtype))
     pm = pmask if pmask is not None else torch.ones(p.shape[:2], dtype=torch.bool,
                                                     device=dev)
     if mesh is not None:
-        mesh_mod.check_mesh(mesh, dev)
         R = reps_np.shape[0]
         if R % mesh_mod.axis_size(mesh, "win"):
             raise ValueError(f"constraint count {R} must divide the mesh axis 'win' "
@@ -296,7 +308,6 @@ def global_ba_solve(
                              f"zero-weight constraints")
         lo, hi = mesh_mod.block(R, mesh, "win")
         reps_np, p, p_t, w, pm = reps_np[lo:hi], p[lo:hi], p_t[lo:hi], w[lo:hi], pm[lo:hi]
-    psum = lambda x: mesh_mod.psum(x, mesh, "win")
     zidx_np, zmask_np = _span_data(reps_np, max_span)
     inc_np, inc_ok_np = _incidence(zidx_np, zmask_np, Z)
     reps_t = to_device(reps_np.astype(np.int64), torch.int64, dev)
@@ -306,17 +317,17 @@ def global_ba_solve(
     inc_ok = to_device(inc_ok_np, torch.bool, dev)
 
     data = (reps_t, zidx, zmask, inc, inc_ok, w, p, p_t, pm)
-    static = (max_span, huber_delta, cg_iters)
+    key = None if mesh is None else mesh_mod.MeshKey(mesh)
+    static = (max_span, huber_delta, cg_iters, key)
 
     Ts = T0s
     lam = torch.full((), lambda0, dtype=dtype, device=dev)
-    prev_E = _energy(T0s, reps_t, p, p_t, w, pm, max_span, huber_delta, psum)
+    prev_E = _energy(T0s, reps_t, p, p_t, w, pm, max_span, huber_delta, _psum(mesh))
     n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_iters):
         if graphed:
             Ts, lam, prev_E, n_acc = _graphs.run(_lm_iteration, static, Ts, lam, prev_E,
                                                  n_acc, *data)
         else:
-            Ts, lam, prev_E, n_acc = _lm_iteration(static, Ts, lam, prev_E, n_acc, *data,
-                                                   psum=psum)
+            Ts, lam, prev_E, n_acc = _lm_iteration(static, Ts, lam, prev_E, n_acc, *data)
     return GlobalBAResult(T0s=Ts, r_norm=torch.sqrt(prev_E), n_accepted=n_acc, lam=lam)

@@ -25,6 +25,13 @@ the result back; this layer passes the tensors as they are and adds no
 staging of its own. Gloo is how two ranks share one card, which NCCL
 refuses. :data:`COLLECTIVES` counts the collectives this process ran by
 backend and tensor device, so a run can report what it passed.
+
+CUDA graphs. A graph records an NCCL collective as a kernel on the card,
+so a captured step may hold one (:func:`capturable`); gloo runs its
+collectives on the host, which a graph cannot record. A replay runs no
+Python, so the graph cache (``_graphs.py``) adds to :data:`COLLECTIVES`
+the collectives each replay runs, as it does for the kernels' launches.
+A mesh enters a graph's key as a :class:`MeshKey`.
 """
 
 from __future__ import annotations
@@ -42,6 +49,40 @@ COLLECTIVES: dict = {}
 def _count(op: str, group, x: torch.Tensor) -> None:
     key = f"{op}/{dist.get_backend(group)}/{x.device.type}"
     COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+
+
+def capturable(mesh: DeviceMesh | None) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``mesh``: every
+    group of it on NCCL, on CUDA tensors (no mesh holds none). Gloo
+    stages CUDA tensors through host buffers and runs the collective on
+    the CPU, which a graph cannot record."""
+    if mesh is None:
+        return True
+    return mesh.device_type == "cuda" and all(
+        dist.get_backend(mesh.get_group(a)) == "nccl" for a in mesh.mesh_dim_names)
+
+
+class MeshKey:
+    """A mesh in a graph key (``_graphs.run``'s ``static``): equal for the
+    same process groups, by identity, and the same rank. A captured
+    collective runs on the communicator it was recorded on, so a key
+    replays only on the groups it was captured with; the key holds them
+    while the cache holds the key."""
+
+    __slots__ = ("mesh", "_groups", "_rank")
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self._groups = tuple(mesh.get_group(a) for a in mesh.mesh_dim_names)
+        self._rank = dist.get_rank()
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, MeshKey) and self._rank == other._rank
+                and len(self._groups) == len(other._groups)
+                and all(a is b for a, b in zip(self._groups, other._groups)))
+
+    def __hash__(self) -> int:
+        return hash((self._rank, tuple(id(g) for g in self._groups)))
 
 
 def make_mesh(n_win: int | None = None, n_hyp: int = 1,

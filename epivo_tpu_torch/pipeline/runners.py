@@ -40,6 +40,10 @@ hypotheses (:func:`ransac.ransac_essential`). The window solve
 over ``win`` too; the host stages (scale graph, stitching, the loop
 stage) run replicated. Only global rank 0 writes checkpoints and metrics.
 At a world size of 1 a mesh run is bit-equal to the run without one.
+A rank's steps, window solve and polish replay CUDA graphs as they do
+without a mesh (``_graphs.py``; the gather of the lanes follows outside
+the step); a hyp split and the polish hold collectives, so they are
+captured on NCCL and run eagerly on gloo.
 """
 
 from __future__ import annotations
@@ -94,11 +98,6 @@ def _mesh_batch(batch: int, mesh) -> int:
     """``batch`` rounded up to a multiple of the mesh's ``win`` axis."""
     n = mesh_mod.axis_size(mesh, "win")
     return -(-batch // n) * n
-
-
-def _hyp_mesh(mesh):
-    """The mesh when its ``hyp`` axis splits hypotheses, else None."""
-    return mesh if mesh_mod.axis_size(mesh, "hyp") > 1 else None
 
 
 def _lanes(n: int, mesh) -> list:
@@ -190,7 +189,7 @@ def run_vo_sequence(
     """
     dev = _mesh_device(mesh, device)
     batch = _mesh_batch(batch, mesh)
-    step_fn = _batched_vo(config, collect_cloud=collect_cloud, hyp_mesh=_hyp_mesh(mesh))
+    step_fn = _batched_vo(config, collect_cloud=collect_cloud, hyp_mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(seed)
     mlog = profiling.MetricsLogger(metrics_path if _writes(mesh) else None)
 
@@ -465,7 +464,7 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
         sufmin[q] = min(sufmin[q + 1], todo[q][0], todo[q][1])
     fs.evict_below(int(sufmin[0]))  # resume: skip already-covered frames
 
-    step = _extract_step(vo_cfg, use_orb, _hyp_mesh(mesh))
+    step = _extract_step(vo_cfg, use_orb, mesh)
     gen = torch.Generator(device=dev).manual_seed(seed + len(out))
 
     fb_frac = vo_cfg.frontend.orb_fallback_frac if not use_orb else 0.0
@@ -531,7 +530,7 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
 
     n_swap = 0
     if retry_frames:
-        orb_step = _extract_step(vo_cfg, True, _hyp_mesh(mesh))
+        orb_step = _extract_step(vo_cfg, True, mesh)
 
         def on_retry(res, chunk):
             nonlocal n_swap

@@ -24,6 +24,7 @@ from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.frontend import fast, klt, match as match_mod, orb
 from epivo_tpu_torch.geometry import camera as cam, epipolar, essential, se3
 from epivo_tpu_torch.optim import lm
+from epivo_tpu_torch.parallel import mesh as mesh_mod
 from epivo_tpu_torch.pipeline.config import VOConfig
 
 
@@ -171,44 +172,55 @@ def _captured_samples(draw, status, config: VOConfig, drawn: bool):
 
 
 def _klt_graphed(static, img0, img1, draw):
-    """The captured KLT step: ``static`` = (config, use_kernel, drawn);
-    ``draw`` is the uniforms [B, n_hyp, K] of :func:`ransac.draw_uniforms`
-    (``drawn``) or the samples [B, n_hyp, m]."""
-    config, use_kernel, drawn = static
+    """The captured KLT step: ``static`` = (config, use_kernel, drawn, the
+    hyp split's ``MeshKey`` or None); ``draw`` is the uniforms [B, n_hyp,
+    K] of :func:`ransac.draw_uniforms` (``drawn``) or the samples [B,
+    n_hyp, m]."""
+    config, use_kernel, drawn, hyp = static
     m = _klt_matches(img0, img1, config, use_kernel)
-    return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn))
+    return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn),
+                          hyp_mesh=None if hyp is None else hyp.mesh)
 
 
 def _orb_graphed(static, img0, img1, draw):
     """The captured ORB step, with the 8-match gate; arguments as in
     :func:`_klt_graphed`."""
-    config, use_kernel, drawn = static
+    config, use_kernel, drawn, hyp = static
     m = _orb_matches(img0, img1, config, use_kernel)
     return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn),
-                          too_few=m[3] < 8)
+                          too_few=m[3] < 8, hyp_mesh=None if hyp is None else hyp.mesh)
 
 
 def _run_graphed(step, img0, img1, generator, config: VOConfig, ransac_samples,
-                 use_kernel, K: int) -> VOStepResult:
+                 use_kernel, hyp_mesh, K: int) -> VOStepResult:
     """``step`` (:func:`_klt_graphed` or :func:`_orb_graphed`) through the
     graph cache: on injected samples, or on uniforms [B, n_hyp, K] drawn
-    from ``generator`` before each replay (K: the step's match count)."""
+    from ``generator`` (or a :class:`ransac.BatchDraw`'s rows of its whole
+    batch) before each replay (K: the step's match count)."""
+    hyp = None if hyp_mesh is None else mesh_mod.MeshKey(hyp_mesh)
     if ransac_samples is not None:
-        return _graphs.run(step, (config, use_kernel, False), img0, img1, ransac_samples)
+        return _graphs.run(step, (config, use_kernel, False, hyp), img0, img1,
+                           ransac_samples)
     if generator is None:
         raise ValueError("a graphed step needs a generator or ransac_samples")
     shape = (img0.shape[0], config.ransac.hypotheses(), K)
     draw = _graphs.Fill(shape, torch.float32, img0.device, lambda out: (
         ransac_mod.draw_uniforms(generator, shape[1], shape[2], shape[:1], out=out)))
-    return _graphs.run(step, (config, use_kernel, True), img0, img1, draw)
+    return _graphs.run(step, (config, use_kernel, True, hyp), img0, img1, draw)
+
+
+def _hyp_split(hyp_mesh):
+    """The mesh when its ``hyp`` axis splits the hypotheses, else None (a
+    ``hyp`` axis of one rank leaves RANSAC as it is)."""
+    return hyp_mesh if mesh_mod.axis_size(hyp_mesh, "hyp") > 1 else None
 
 
 def _eager_reason(img0, generator, hyp_mesh) -> str | None:
     """Why a step on these arguments cannot be captured, or None."""
-    if hyp_mesh is not None:
-        return "a hyp_mesh"
+    if not mesh_mod.capturable(hyp_mesh):
+        return "a gloo mesh"  # the hyp split's all_gather
     if isinstance(generator, ransac_mod.BatchDraw):
-        return "a BatchDraw"
+        generator = generator.generator
     if isinstance(generator, torch.Generator):
         g, d = generator.device, img0.device
         if g.type != d.type or (g.index is not None and d.index is not None
@@ -234,25 +246,31 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
     draw; a :class:`ransac.BatchDraw` in place of ``generator`` draws a
     larger batch and keeps these B lanes' rows of it. ``hyp_mesh`` (a
     ``DeviceMesh`` with a ``hyp`` axis) splits every pair's hypotheses over
-    that axis, as the reference's ``vo_step(hyp_mesh=)`` does.
+    that axis, as the reference's ``vo_step(hyp_mesh=)`` does (one
+    ``all_gather`` inside the step).
     ``use_kernel=None`` runs the CUDA kernels for CUDA images and the plain
     versions for CPU images. Every field of the result has a leading [B].
 
     ``graph`` (``_graphs.wanted``): ``None`` replays the step as a CUDA
-    graph cached per (config, ``use_kernel``, input shapes) for CUDA
-    images, unless a ``hyp_mesh``, a ``BatchDraw``, a generator on another
-    device or ``use_kernel=False`` keeps it eager; ``True`` raises where
-    it cannot capture; ``False`` runs eagerly. The uniforms behind the
-    samples are drawn eagerly before each replay, so a graphed and an
-    eager step from one generator state draw the same samples, and give
-    the same result bit for bit.
+    graph cached per (config, ``use_kernel``, the hyp split's groups,
+    input shapes) for CUDA images, unless a hyp split over a gloo mesh, a
+    generator on another device or ``use_kernel=False`` keeps it eager;
+    ``True`` raises where it cannot capture; ``False`` runs eagerly. The
+    uniforms behind the samples (a ``BatchDraw``'s rows of its whole
+    batch) are drawn eagerly before each replay, so a graphed and an eager
+    step from one generator state draw the same samples, and give the same
+    result bit for bit. A hyp split over an NCCL mesh is captured with its
+    ``all_gather``: every rank of the ``hyp`` axis must make the same calls
+    (``_graphs.py``).
     """
+    hyp_mesh = _hyp_split(hyp_mesh)
     drawn_by = generator if ransac_samples is None else None
     if _graphs.wanted(img0, graph, _eager_reason(img0, drawn_by, hyp_mesh),
                       default=use_kernel is not False):
         H, W = img0.shape[-2:]
         return _run_graphed(_klt_graphed, img0, img1, generator, config, ransac_samples,
-                            use_kernel, fast.n_keypoints(H, W, config.frontend.max_keypoints))
+                            use_kernel, hyp_mesh,
+                            fast.n_keypoints(H, W, config.frontend.max_keypoints))
     m = _klt_matches(img0, img1, config, use_kernel)
     return _two_view_tail(*m, generator, config, ransac_samples, hyp_mesh=hyp_mesh)
 
@@ -319,12 +337,13 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
     captured together, and the uniforms behind the samples are drawn
     before each replay (their K from :func:`orb.n_keypoints`).
     """
+    hyp_mesh = _hyp_split(hyp_mesh)
     drawn_by = generator if ransac_samples is None else None
     if _graphs.wanted(img0, graph, _eager_reason(img0, drawn_by, hyp_mesh),
                       default=use_kernel is not False):
         H, W = img0.shape[-2:]
         return _run_graphed(_orb_graphed, img0, img1, generator, config, ransac_samples,
-                            use_kernel, orb.n_keypoints(H, W, config.frontend))
+                            use_kernel, hyp_mesh, orb.n_keypoints(H, W, config.frontend))
     m = _orb_matches(img0, img1, config, use_kernel)
     return _two_view_tail(*m, generator, config, ransac_samples, too_few=m[3] < 8,
                           hyp_mesh=hyp_mesh)

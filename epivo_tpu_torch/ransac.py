@@ -77,7 +77,17 @@ def draw_uniforms(generator, n_hyp: int, N: int, lead: tuple = (),
     the generator's device (into ``out`` when given): the only part of the
     draw that consumes the generator. A captured step (``_graphs.py``)
     runs it eagerly before each replay, so a graphed run from seed s draws
-    what an eager run from seed s draws."""
+    what an eager run from seed s draws.
+
+    A :class:`BatchDraw` draws its whole batch's [total, n_hyp, N] and
+    keeps rows ``rows`` ([len(rows), n_hyp, N]; ``lead`` is that)."""
+    if isinstance(generator, BatchDraw):
+        g = generator.generator
+        u = torch.rand((generator.total, n_hyp, N), generator=g, device=g.device)
+        rows = to_device(generator.rows, torch.int64, g.device)
+        if out is not None:
+            return torch.index_select(u, 0, rows, out=out)
+        return u.index_select(0, rows)
     shape = tuple(lead) + (n_hyp, N)
     if out is not None:
         return torch.rand(shape, generator=generator, out=out)
@@ -107,13 +117,7 @@ def _sample_indices(generator, n_hyp: int, N: int,
     With a :class:`BatchDraw` (one leading axis of ``len(rows)`` lanes) the
     draw is [total, n_hyp, N] and lane q takes row ``rows[q]``.
     """
-    if isinstance(generator, BatchDraw):
-        g = generator.generator
-        u = draw_uniforms(g, n_hyp, N, (generator.total,))
-        u = u.index_select(0, to_device(generator.rows, torch.int64, g.device))
-    else:
-        u = draw_uniforms(generator, n_hyp, N, lead)
-    return gumbel_top_k(u, mask, sample_size, device)
+    return gumbel_top_k(draw_uniforms(generator, n_hyp, N, lead), mask, sample_size, device)
 
 
 def ransac_essential(

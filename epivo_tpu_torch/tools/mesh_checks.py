@@ -152,24 +152,29 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
     """``chip_smoke.py``'s multi-device phase on one rank of a 2-rank group:
 
     - ``_extract_pairs`` of ``pairs`` over ``frames`` with the pair batch
-      over ``win`` (``extract``: n_points, batch), with the launch counts
-      set to 0 just before it: this rank's launches in the KLT pass and in
-      the ORB retry pass, and the lanes of each step it ran; then one more
-      step on this rank's lanes of the first batch with any host sync
-      raising (``torch.cuda.set_sync_debug_mode``);
+      over ``win`` (``extract``: n_points, batch) with every step eager
+      (``graph=False``); then the same extraction graphed, with the launch
+      counts set to 0 just before it: this rank's launches in the KLT pass
+      and in the ORB retry pass, and the lanes of each step it ran; then
+      two more steps on this rank's lanes of the first batch (replays of
+      its graph), the second with any host sync raising
+      (``torch.cuda.set_sync_debug_mode``);
     - ``distributed_ba_step`` over ``win`` on ``ba_in`` = (T0s, p, p_t,
-      wreps, pmask, spec, BA config);
-    - ``refine_global`` over ``win`` on ``zetas`` and ``pair_data``, twice;
+      wreps, pmask, spec, BA config), three times: eager, captured,
+      replayed (its graph holds no collective);
+    - ``refine_global`` over ``win`` on ``zetas`` and ``pair_data``, twice
+      (eager: its sums are gloo collectives);
     - ``ransac_essential`` with its hypotheses over ``hyp`` on
       ``ransac_in`` = (p, p_t, mask, samples, threshold).
 
-    Returns the results (numpy), the host wall seconds of each, and the
-    collectives this rank ran (:data:`mesh.COLLECTIVES`)."""
+    Returns the results (numpy), the host wall seconds of each, the
+    collectives this rank ran (:data:`mesh.COLLECTIVES`) and this rank's
+    graph keys (function, first input's shape, captured, replays)."""
     import time
 
-    from epivo_tpu_torch import ransac
+    from epivo_tpu_torch import _graphs, ransac
     from epivo_tpu_torch.frontend import fast, klt
-    from epivo_tpu_torch.pipeline import runners, stream
+    from epivo_tpu_torch.pipeline import runners, stream, vo
 
     win = mesh_mod.make_mesh(2, 1, device_type=dev.type)
     hyp = mesh_mod.make_mesh(1, 2, device_type=dev.type)
@@ -183,6 +188,20 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
         klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
 
     out, wall, st = {}, {}, {}
+    # The extraction with every step eager (graph=False), which the graphed
+    # run below must give bit for bit; first, so that it and not the
+    # graphed run pays this process's first CUDA work.
+    steps = vo.vo_step_batched, vo.vo_step_orb_batched
+    vo.vo_step_batched, vo.vo_step_orb_batched = (
+        lambda *a, **kw: steps[0](*a, **{**kw, "graph": False}),
+        lambda *a, **kw: steps[1](*a, **{**kw, "graph": False}))
+    t0 = time.perf_counter()
+    try:
+        out["pairs_eager"] = runners._extract_pairs(stream.FrameStream(list(frames)), pairs,
+                                                    vo_cfg, 0, mesh=win, device=dev, **extract)
+    finally:
+        vo.vo_step_batched, vo.vo_step_orb_batched = steps
+    wall["extract_eager_s"] = time.perf_counter() - t0
     mesh_mod.COLLECTIVES.clear()
     reset()
     t0 = time.perf_counter()
@@ -195,8 +214,8 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
                        "step_lanes": st["step_lanes"], "retry_lanes": st["retry_lanes"]}
     out["retried"] = st["retried"]
 
-    # The host-sync check, on one more step of this rank's lanes of the
-    # first batch (its launches are not counted).
+    # The host-sync check, on two more steps of this rank's lanes of the
+    # first batch (replays; their launches are not counted).
     batch = extract["batch"]
     lanes = runners._lanes(batch, win)
     src, tgt = runners._pair_inputs(frames.__getitem__, [pairs[q] for q in lanes], dev)
@@ -216,10 +235,13 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
     *arrays, spec, cfg = ba_in
     fn = dist_mod.distributed_ba_step(win, spec, cfg)
     args = [torch.from_numpy(a).to(dev) for a in arrays]
-    sync()
-    t0 = time.perf_counter()
-    out["ba"] = to_host(fn(*args))
-    wall["ba_s"] = time.perf_counter() - t0  # the first call: its warm-up included
+    ba_runs = []
+    for name in ("ba_s", "ba_capture_s", "ba_replay_s"):  # eager, captured, replayed
+        sync()
+        t0 = time.perf_counter()
+        ba_runs.append(to_host(fn(*args)))
+        wall[name] = time.perf_counter() - t0
+    out["ba"], out["ba_again"] = ba_runs[0], ba_runs[1:]
 
     t0 = time.perf_counter()
     out["global"] = [to_host(runners.refine_global(zetas, pair_data, ba_cfg, mesh=win,
@@ -234,4 +256,8 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
     out["wall"] = wall
     out["backend"] = torch.distributed.get_backend()
     out["collectives"] = dict(mesh_mod.COLLECTIVES)
+    cache = _graphs.CACHE
+    out["graphs"] = ([(k[0].__name__, tuple(k[2][0][0]), True, e.replays)
+                      for k, e in cache.entries.items()]
+                     + [(k[0].__name__, tuple(k[2][0][0]), False, 0) for k in cache.seen])
     return out

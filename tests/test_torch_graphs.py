@@ -2,12 +2,14 @@
 CPU, where there is no CUDA graph: the ``graph=`` switch of
 ``vo_step_batched``, ``vo_step`` and ``ba_windows``, the RANSAC draw split
 into uniforms (drawn before a replay) and the Gumbel top-k (captured), the
-device constants built once, the cache's keys, LRU and launch accounting.
+device constants built once, the cache's keys, LRU and launch accounting,
+and what a mesh or a ``BatchDraw`` leaves to a capture.
 
-The cache's bookkeeping runs through a stub capturer: its "capture" runs
-the function once, and its "replay" runs it again on the static inputs
-with the launch counters put back, as a CUDA graph replays without
-running Python. With it the graphed code path of the entry points runs on
+The cache's bookkeeping runs through a stub capturer
+(``tests/graph_stub.py``): its "capture" runs the function once, and its
+"replay" runs it again on the static inputs with the launch and
+collective counters put back, as a CUDA graph replays without running
+Python. With it the graphed code path of the entry points runs on
 the CPU and must give the eager result bit for bit; the graphed windowed
 BA is also held to the JAX package's ``ba_windows`` at
 ``tests/test_torch_ba.py``'s tolerances. ``chip_smoke.py`` holds the real
@@ -30,7 +32,9 @@ from epivo_tpu_torch import _device, _graphs, ransac as transac
 from epivo_tpu_torch.datasets import photoreal
 from epivo_tpu_torch.frontend import fast as tfast, klt as tklt
 from epivo_tpu_torch.geometry.camera import Pinhole
+from epivo_tpu_torch.parallel import global_ba as tgba
 from epivo_tpu_torch.pipeline import ba as tba, config as tconfig, vo as tvo
+from tests.graph_stub import StubCapture, StubGraph, graph_cpu_calls  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HS, WS = 96, 128
@@ -76,36 +80,20 @@ def _ba_config():
                             window_size=3, stride=2)
 
 
-class StubGraph:
-    """Replays by running the function again on the static inputs, with the
-    launch counters put back, into the static outputs."""
+@pytest.fixture
+def gloo_mesh(tmp_path):
+    """A (1, 1) CPU mesh on a gloo group of one rank in this process: its
+    collectives run, over one rank."""
+    import torch.distributed as dist
 
-    def __init__(self, fn, static, inputs, outputs):
-        self.fn, self.static, self.inputs, self.outputs = fn, static, inputs, outputs
+    from epivo_tpu_torch.parallel import mesh as mesh_mod
 
-    def replay(self):
-        saved = _graphs.launches()
-        new = self.fn(self.static, *self.inputs)
-        _graphs._add_launches({k: saved[k] - v for k, v in _graphs.launches().items()})
-        for o, n in zip(_flat(self.outputs), _flat(new)):
-            o.copy_(n)
-
-
-def _flat(out):
-    return [out] if isinstance(out, torch.Tensor) else [o for o in out if o is not None]
-
-
-class StubCapture:
-    def __init__(self):
-        self.captures = 0
-
-    def warmup(self, fn, static, args, device):
-        return fn(static, *args)
-
-    def capture(self, fn, static, inputs, device):
-        self.captures += 1
-        out = fn(static, *inputs)
-        return StubGraph(fn, static, inputs, out), out, 0, 0.0
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield mesh_mod.make_mesh(1, 1, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture
@@ -114,10 +102,7 @@ def stub_cache(monkeypatch):
     CPU call of the entry points sent through it (``graph=None`` graphs)."""
     cache = _graphs.GraphCache(capturer=StubCapture())
     monkeypatch.setattr(_graphs, "CACHE", cache)
-    wanted = _graphs.wanted
-    monkeypatch.setattr(_graphs, "wanted", lambda x, graph, blocked=None, default=True:
-                        (blocked is None and default) if graph is None
-                        else wanted(x, graph, blocked, default))
+    monkeypatch.setattr(_graphs, "wanted", graph_cpu_calls(_graphs.wanted))
     return cache
 
 
@@ -143,18 +128,44 @@ def test_graph_true_raises_on_cpu(pairs):
                        graph=True)
 
 
-def test_graph_true_raises_with_a_mesh_or_a_batch_draw(pairs):
+@pytest.mark.parametrize("case", ["gloo_mesh", "batch_draw"])
+def test_graph_true_raises_with_a_mesh_or_a_batch_draw(pairs, request, case):
+    """graph=True raises where a gloo mesh's collective sits inside the
+    captured function; a BatchDraw graphs (its rows drawn before each
+    replay)."""
     src, tgt = pairs
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(ValueError, match="hyp_mesh.*ROADMAP"):
-        tvo.vo_step_batched(src, tgt, gen, _config(), hyp_mesh=object(), graph=True)
-    draw = transac.BatchDraw(gen, (0, 1), 2)
-    with pytest.raises(ValueError, match="BatchDraw.*ROADMAP"):
-        tvo.vo_step_batched(src, tgt, draw, _config(), graph=True)
-    # Under None each of them keeps the call eager.
-    x = torch.zeros(1)
-    assert not _graphs.wanted(x, None)
-    assert not _graphs.wanted(x, False)
+    if case == "gloo_mesh":
+        mesh = request.getfixturevalue("gloo_mesh")
+        T0s, p, p_t, w, m = _ba_inputs(2)
+        reps = np.array([[0, 0], [1, 1]], np.int32)
+        args = (T0s[0, :2].contiguous(), reps, p[:, 0], p_t[:, 0])
+        # The polish sums over its mesh even at one rank: a gloo all_reduce.
+        with pytest.raises(ValueError, match="a gloo mesh.*graph=None or False"):
+            tgba.global_ba_solve(*args, max_span=1, max_iters=2, mesh=mesh, graph=True)
+        # Under None it runs eagerly, as a CPU call does.
+        assert not _graphs.wanted(T0s, None, "a gloo mesh")
+        assert not _graphs.wanted(T0s, None) and not _graphs.wanted(T0s, False)
+        # A hyp axis of one rank leaves RANSAC without a collective: only
+        # the CPU keeps this step from a graph.
+        with pytest.raises(ValueError, match="CUDA"):
+            tvo.vo_step_batched(src, tgt, gen, _config(), hyp_mesh=mesh, graph=True)
+        _assert_equal(tvo.vo_step_batched(src, tgt, torch.Generator().manual_seed(4),
+                                          _config(), hyp_mesh=mesh, graph=False),
+                      tvo.vo_step_batched(src, tgt, torch.Generator().manual_seed(4),
+                                          _config(), graph=False))
+    else:
+        cache = request.getfixturevalue("stub_cache")
+        draw = lambda g: transac.BatchDraw(g, (1, 0), 3)
+        with pytest.raises(ValueError, match="CUDA"):
+            tvo.vo_step_batched(src, tgt, draw(gen), _config(), graph=True)
+        eager = tvo.vo_step_batched(src, tgt, draw(torch.Generator().manual_seed(6)),
+                                    _config(), graph=False)
+        for _ in range(3):  # eager, the capture's eager run, a replay
+            _assert_equal(tvo.vo_step_batched(src, tgt, draw(torch.Generator().manual_seed(6)),
+                                              _config()), eager)
+        assert cache.capturer.captures == 1
+        assert next(iter(cache.entries.values())).replays == 1
 
 
 @pytest.mark.parametrize("solver", ["8pt", "5pt"])

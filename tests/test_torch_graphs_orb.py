@@ -39,7 +39,7 @@ from epivo_tpu_torch.pipeline import vo as tvo
 from tests.test_global_ba import chain_scene
 from tests.test_runners_datasets import VO_CFG
 from tests.test_torch_graphs import (StubCapture, _assert_equal, _bump,  # noqa: F401
-                                     host_builds, stub_cache)
+                                     gloo_mesh, host_builds, stub_cache)
 from tests.test_torch_vo_orb import _assert_close, _pairs, _reference_samples
 
 B = 2
@@ -103,7 +103,7 @@ def test_second_call_policy():
 # -- the switch -----------------------------------------------------------------
 
 
-def test_graph_true_raises_on_cpu_and_with_a_mesh(frames):
+def test_graph_true_raises_on_cpu_and_with_a_mesh(frames, gloo_mesh):
     src, tgt = frames
     gen = torch.Generator().manual_seed(0)
     cfg = _config()
@@ -111,9 +111,11 @@ def test_graph_true_raises_on_cpu_and_with_a_mesh(frames):
         tvo.vo_step_orb_batched(src, tgt, gen, cfg, graph=True)
     with pytest.raises(ValueError, match="CUDA"):
         tvo.vo_step_orb(src[0], tgt[0], gen, cfg, graph=True)
-    with pytest.raises(ValueError, match="hyp_mesh.*ROADMAP"):
-        tvo.vo_step_orb_batched(src, tgt, gen, cfg, hyp_mesh=object(), graph=True)
-    with pytest.raises(ValueError, match="BatchDraw.*ROADMAP"):
+    # Neither a hyp axis of one rank (no collective in the step) nor a
+    # BatchDraw keeps the step from a graph: only the CPU does.
+    with pytest.raises(ValueError, match="CUDA"):
+        tvo.vo_step_orb_batched(src, tgt, gen, cfg, hyp_mesh=gloo_mesh, graph=True)
+    with pytest.raises(ValueError, match="CUDA"):
         tvo.vo_step_orb_batched(src, tgt, transac.BatchDraw(gen, (0, 1), 2), cfg,
                                 graph=True)
     scene = chain_scene(jax.random.PRNGKey(2), n_zeta=6, span=2)
@@ -121,8 +123,9 @@ def test_graph_true_raises_on_cpu_and_with_a_mesh(frames):
             torch.from_numpy(np.array(scene.p)), torch.from_numpy(np.array(scene.p_t)))
     with pytest.raises(ValueError, match="CUDA"):
         tgba.global_ba_solve(*args, max_span=2, max_iters=2, graph=True)
-    with pytest.raises(ValueError, match="a mesh.*ROADMAP"):
-        tgba.global_ba_solve(*args, max_span=2, max_iters=2, mesh=object(), graph=True)
+    # The polish's all_reduce on a gloo mesh, even of one rank.
+    with pytest.raises(ValueError, match="a gloo mesh"):
+        tgba.global_ba_solve(*args, max_span=2, max_iters=2, mesh=gloo_mesh, graph=True)
 
 
 # -- the ORB step ---------------------------------------------------------------
