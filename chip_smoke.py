@@ -14,7 +14,10 @@ Phases, each reported on its own line:
    the shapes the two-view VO step gives it: the wrapper's time (host and
    device), the kernel's own device time, the plain version's time, the
    bound (the least time the card could take for the same work) and, where
-   one PyTorch call computes the same function, that call's time;
+   one PyTorch call computes the same function, that call's time; the
+   extraction kernel at S = 34 and 46 and the LK kernel (both off every
+   path: the composed level route) included, the ORB describe kernel in
+   phases 8, 9 and 11 on its own path's inputs;
 4. slice: vo_step on the KITTI-sized (376x1241) photoreal corridor pair at
    the bench configuration, counting kernel launches, timing the step, the
    detect stage and the KLT stage, checking that fast.detect and klt.track
@@ -43,22 +46,23 @@ Phases, each reported on its own line:
 8. orb: the graph checks of the ORB step (B = 1 from a generator and from
    injected samples, B = 8, the pyramid step, the B = 44 call of the
    draws), then vo_step_orb on the corridor pair (one fast_cand and one
-   extract launch per step), vo_step_orb_batched at B = 8 (no host sync,
-   bit-equal on repeat, every lane against the ground truth, kernel path
-   against plain path), the extraction kernel at the ORB window (S = 37) for the
-   2 and 16 frames of a single and a batched step, one step on the 8-level
-   pyramid (fast_cand 6, fast 2, extract 8; the dense FAST kernel against
-   its plain version at that step's 127x415 and 106x346 levels), and the
-   ORB retry of _extract_pairs on a turn pair where KLT alone
-   under-rotates;
+   orb_describe launch per step), vo_step_orb_batched at B = 8 (no host
+   sync, bit-equal on repeat, every lane against the ground truth, kernel
+   path against plain path), the ORB describe kernel against its plain
+   version (signs, packed and angle bit-equal) on the 2 and 16 frames of a
+   single and a batched step and at each level of one 8-level pyramid
+   step, the pyramid step itself (fast_cand 6, fast 2, orb_describe 8; the dense
+   FAST kernel against its plain version at its 127x415 and 106x346
+   levels), and the ORB retry of _extract_pairs on a turn pair where KLT
+   alone under-rotates;
 9. sequence: the 300-frame KITTI-sized corridor through run_vo_sequence
    (ground-truth scale) and run_ba_sequence (no ground truth): ATE, length
    ratio, the pairs' accuracy, the pairs retried and replaced by ORB, the
    wall time of each stage, the ORB retry's graph keys (a batch size
    called once runs eagerly and captures nothing), and fast_cand,
-   klt_level and the extraction kernel against their plain versions on the inputs of one 32-pair
-   extraction batch and one ORB retry batch of that run, with device time
-   and bound;
+   klt_level and the ORB describe kernel against their plain versions on
+   the inputs of one 32-pair extraction batch and one ORB retry batch of
+   that run, with device time and bound;
 10. stereo: the 60-frame KITTI-sized stereo corridor through
    run_stereo_ba_sequence at two seeds: metric ATE, length ratio and
    step-length error against the JAX package's own CPU spread, the metric
@@ -79,9 +83,9 @@ Phases, each reported on its own line:
    verification key's capture and replays, the stage again with every ORB
    call eager (each verification result, the trajectory and the loops bit
    for bit), every applied loop's verification against the port's CPU
-   path with the same samples; and fast_cand, the
-   dense FAST kernel and the extraction kernel against their plain
-   versions at the half-resolution keyframe pyramid's shapes;
+   path with the same samples; fast_cand, the dense FAST kernel and the
+   ORB describe kernel against their plain versions at the
+   half-resolution keyframe pyramid's shapes;
 12. five-point and global BA: vo_step with RansacConfig(solver="5pt") on
    the corridor pair (5,120 candidates per pair): a KLT step's launches,
    step time, the five-point stage's device time and ATen operators per
@@ -393,19 +397,20 @@ def _check(cond: bool, what: str) -> None:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.frontend import fast, klt, orb
 
     fast.KERNEL_LAUNCHES = fast.CAND_LAUNCHES = 0
     klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
+    orb.DESCRIBE_LAUNCHES = 0
 
 
 def launches_now() -> dict:
     """Every kernel's launch count since the last reset."""
-    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.frontend import fast, klt, orb
 
     return {"fast": fast.KERNEL_LAUNCHES, "fast_cand": fast.CAND_LAUNCHES,
             "klt_level": klt.LEVEL_LAUNCHES, "extract": klt.EXTRACT_LAUNCHES,
-            "lk": klt.LK_LAUNCHES}
+            "lk": klt.LK_LAUNCHES, "orb_describe": orb.DESCRIBE_LAUNCHES}
 
 
 def host_ms(fn) -> float:
@@ -455,6 +460,15 @@ ARC_OPS = 48 + 16 + 15 + 1 + 1
 NMS_OPS = 9  # 8 neighbour maxima and the comparison (dense kernel)
 NMS_SEP_OPS = 6  # with row maxima shared between rows (candidate kernel)
 SELECT_OPS = 2 * 256  # per selection round of a block: max reduction, ballots
+# ORB describe (orb_describe.cu), per keypoint: the moments' two float64
+# multiply-adds per circle pixel (counted at the float32 rate, which only
+# lowers the bound: the guide's table has no float64 row), and per test
+# two ends of rotated position (4 products, 4 sums), clamp (4), floor (2),
+# fraction and weights (4) and blend (6 products, 3 sums), and the compare.
+DESC_MOMENT_OPS = 4
+DESC_CIRCLE = int(((np.arange(37) - 18)[:, None] ** 2 + (np.arange(37) - 18) ** 2
+                   <= 240).sum())  # the moments' pixels
+DESC_TEST_OPS = 2 * (8 + 4 + 2 + 4 + 9) + 1
 FAST_T = 40.0  # the bench configuration's threshold
 
 
@@ -600,6 +614,61 @@ def extract_report(imgs, oy, ox, S: int, what: str = "") -> dict:
     return dict(max_abs_err=float((k - p).abs().max()), ms=t["kernel"], device_ms=dev_ms,
                 plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
                 library_device_ms=lib_dev_ms)
+
+
+def window_pixels(imgs, xy, S: int) -> int:
+    """The distinct pixels of [B, H, W] images that the S x S windows at
+    [B, K, 2] keypoints cover (origins clamped as klt._extract_windows
+    clamps them), summed over the batch: what a describe must read."""
+    B, H, W = imgs.shape
+    c = torch.round(xy).to(torch.int64)
+    ox, oy = (c[..., 0] - S // 2).clamp(0, W - S), (c[..., 1] - S // 2).clamp(0, H - S)
+    b = torch.arange(B, device=imgs.device)[:, None].expand_as(ox)
+    edges = torch.zeros(B, H + 1, W + 1, dtype=torch.int32, device=imgs.device)
+    for dy, dx, sign in ((0, 0, 1), (0, S, -1), (S, 0, -1), (S, S, 1)):
+        edges.index_put_((b, oy + dy, ox + dx), torch.full_like(ox, sign, dtype=torch.int32),
+                         accumulate=True)
+    return int((edges.cumsum(1).cumsum(2) > 0).sum())
+
+
+def describe_report(imgs, xy, what: str) -> dict:
+    """The ORB describe kernel on [B, H, W] images and [B, K, 2] keypoints
+    against its plain version (signs, packed and angle bit-equal, no host
+    sync), with the wrapper's time, the kernel's device time, the bound
+    (the windows' distinct pixels read once, the pattern, the outputs) and
+    the plain version's time."""
+    from epivo_tpu_torch import _kernels
+    from epivo_tpu_torch._device import constant
+    from epivo_tpu_torch.frontend import orb
+
+    lib, stream = _kernels.lib(), torch.cuda.current_stream().cuda_stream
+    B, Hl, Wl = imgs.shape
+    K, S = xy.shape[1], orb._S
+    got = no_sync(lambda: orb.describe_kernel(imgs, xy))
+    ref = orb.describe_plain(imgs, xy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("signs", "packed", "angle"), got, ref):
+        _check(bits_equal(a, b), f"orb_describe: {name} differs from plain ({what}, "
+               f"B={B}, {Hl}x{Wl})")
+    signs, packed, ang = got
+    pattern = constant(orb._PATTERN, torch.float32, imgs.device)
+    raw = lambda: lib.epivo_orb_describe(
+        imgs.data_ptr(), xy.data_ptr(), pattern.data_ptr(), signs.data_ptr(),
+        packed.data_ptr(), ang.data_ptr(), B, Hl, Wl, K, float(S - 1.001), stream)
+    dev_ms, how = device_ms(raw, "orb_describe_kernel")
+    n_pix = window_pixels(imgs, xy, S)
+    b_ms, b_by = bound(n_pix * 4 + B * K * 2 * 4 + pattern.numel() * 4
+                       + B * K * (orb.N_BITS * 4 + orb.N_BITS // 8 + 4),
+                       B * K * (DESC_CIRCLE * DESC_MOMENT_OPS + orb.N_BITS * DESC_TEST_OPS))
+    t = timed_in_turns({"kernel": lambda: orb.describe_kernel(imgs, xy),
+                        "plain": lambda: orb.describe_plain(imgs, xy)},
+                       turns=1, reps=10, warmup=2)
+    print(f"{what}: kernel orb_describe B={B} K={K} on {Hl}x{Wl} bit-equal (signs, packed, "
+          f"angle), no host sync, wrapper {t['kernel']:.4f} ms, device {dev_ms:.4f} ms "
+          f"({how}), bound {b_ms:.4f} ms ({b_by}; the windows cover {n_pix} of "
+          f"{B * Hl * Wl} pixels), plain {t['plain']:.4f} ms")
+    return dict(max_abs_err=0.0, ms=t["kernel"], device_ms=dev_ms, plain_ms=t["plain"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, window_pixels=n_pix)
 
 
 def level_lk(src, tgt, pts, guess, win: int, S: int, iters: int,
@@ -779,7 +848,7 @@ def timed_in_turns(fns: dict, turns: int = 2, **kw) -> dict:
 # The kernel each launch counter counts, by its name in a profile.
 KERNEL_NAMES = {"fast": "fast_score_kernel", "fast_cand": "fast_candidates_kernel",
                 "klt_level": "track_level_kernel", "extract": "extract_windows_kernel",
-                "lk": "lk_iterate_kernel"}
+                "lk": "lk_iterate_kernel", "orb_describe": "orb_describe_kernel"}
 NO_LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 GRAPH_TURNS = 2  # host-clock calls of each path per turn (eager, graph, graph, eager)
 PROFILE_TRIES = 3  # profiles of one replay each, for the profiler's dropped records
@@ -1125,7 +1194,7 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
         return out
 
     per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
-                "lk": 0}
+                "lk": 0, "orb_describe": 0}
     # The step's CUDA graph (captured by its second call) against eager.
     graphs = {"generator": graph_check(
         f"vo_step B=1 {H}x{W}, generator", lambda graph: vo.vo_step(
@@ -1261,7 +1330,7 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
     batched = lambda **kw: vo.vo_step_batched(img0, img1, gen(), cfg, **kw)
     per_call = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
-                "lk": 0}
+                "lk": 0, "orb_describe": 0}
     graphs = {"generator": graph_check(f"vo_step_batched B={n_pairs}, generator",
                                        lambda graph: batched(graph=graph), per_call)}
 
@@ -1584,22 +1653,22 @@ def recording(module, name: str, keep=lambda *args: True):
         yield seen
 
 
-def extract_inputs(fn) -> list:
-    """The (images, oy, ox, S) of every extraction-kernel launch fn() makes."""
-    from epivo_tpu_torch.frontend import klt
+def describe_inputs(fn) -> list:
+    """The (images, keypoints) of every ORB describe kernel launch fn() makes."""
+    from epivo_tpu_torch.frontend import orb
 
-    with recording(klt, "extract_windows_kernel") as seen:
+    with recording(orb, "describe_kernel") as seen:
         fn()
     return seen
 
 
 def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     """The ORB step (vo_step_orb and vo_step_orb_batched) on the corridor
-    pair at the bench configuration, the extraction kernel at the ORB
-    window, one step on the scale pyramid, and the ORB retry of pair
-    extraction on a turn pair."""
+    pair at the bench configuration, the describe kernel on the inputs of
+    a step, a batched call and each level of one step on the scale
+    pyramid, and the ORB retry of pair extraction on a turn pair."""
     from epivo_tpu_torch import ransac
-    from epivo_tpu_torch.frontend import fast
+    from epivo_tpu_torch.frontend import fast, orb
     from epivo_tpu_torch.pipeline import vo
 
     dev = f0.device
@@ -1607,8 +1676,10 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
     T_gt = np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
     out = {}
-    per_step = {"fast": 0, "fast_cand": 1, "klt_level": 0, "extract": 1, "lk": 0}
-    per_pyr = {"fast": 2, "fast_cand": 6, "klt_level": 0, "extract": 8, "lk": 0}
+    per_step = {"fast": 0, "fast_cand": 1, "klt_level": 0, "extract": 0, "lk": 0,
+                "orb_describe": 1}
+    per_pyr = {"fast": 2, "fast_cand": 6, "klt_level": 0, "extract": 0, "lk": 0,
+               "orb_describe": 8}
     cfg_p = orb_config(cfg, pyramid=True)
     eps = torch.arange(n_pairs, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
     img0 = (f0[None] + eps).contiguous()
@@ -1737,26 +1808,30 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
                         r_worst=float(worst[0]), dir_worst=float(worst[1]),
                         beyond_reference_worst=above)
 
-    # The extraction kernel at the ORB window, on the inputs describe gives
-    # it: the two frames of one step and the 16 of a batched call.
+    # The describe kernel on the inputs the step gives it: the two frames of
+    # one step and the 16 of a batched call.
     rows = {}
     for label, fn in (("B2", lambda: vo.orb_associate(f0[None], f1[None], cfg)),
                       ("B16", lambda: vo.orb_associate(img0, img1, cfg))):
-        (imgs, oy, ox, S), = extract_inputs(fn)
-        _check(S == 37 and imgs.shape[0] == int(label[1:]),
-               f"ORB extraction at S={S}, B={imgs.shape[0]}")
-        rows[f"S37_{label}"] = extract_report(imgs, oy, ox, S, " (ORB describe)")
-    out["extract"] = rows
+        (imgs, xy), = describe_inputs(fn)
+        _check(imgs.shape[0] == int(label[1:]), f"ORB describe at B={imgs.shape[0]}")
+        rows[f"S37_{label}"] = describe_report(imgs, xy, f"orb: step {label}")
 
     # One step on the 8-level scale pyramid (a replay); an eager step
     # records the dense FAST kernel's inputs (levels 6-7, below 65,536
-    # pixels).
-    with recording(fast, "fast_score_map_kernel") as dense:
+    # pixels) and the describe kernel's at each level.
+    with recording(fast, "fast_score_map_kernel") as dense, \
+            recording(orb, "describe_kernel") as described:
         step(cfg_p, graph=False)
     torch.cuda.synchronize()
     stacks = [(img.reshape(-1, *img.shape[-2:]), thr) for img, thr, *_ in dense]
     out["fast_dense"] = {f"{img.shape[1]}x{img.shape[2]}_B{img.shape[0]}": dense_report(
         img, thr, "orb: pyramid step") for img, thr in stacks}
+    _check(len(described) == 8, f"the pyramid step described {len(described)} levels")
+    for imgs, xy in described:
+        tag = f"{imgs.shape[1]}x{imgs.shape[2]}_B{imgs.shape[0]}"
+        rows[f"pyramid_{tag}"] = describe_report(imgs, xy, f"orb: pyramid step {tag}")
+    out["orb_describe"] = rows
     reset_launches()
     t0 = time.perf_counter()
     r_pyr = step(cfg_p)
@@ -1824,7 +1899,8 @@ def turn_pair(dev) -> dict:
            f"turn pair: the ORB retry gives {a_on:.3f} deg against {a_gt:.3f}")
     _check(n_on > TURN_INLIER_GAIN * n_off,
            f"turn pair: {n_on} inliers with the retry against {n_off} without")
-    _check(got["on"]["n_replaced"] == 1 and got["on"]["launches"]["extract"] == 1,
+    _check(got["on"]["n_replaced"] == 1 and got["on"]["launches"]["orb_describe"] == 1
+           and got["on"]["launches"]["extract"] == 0,
            f"turn pair: the retry did not replace the pair through the kernels "
            f"({got['on']})")
 
@@ -1953,7 +2029,7 @@ def phase_sequence(dev) -> dict:
         runs.append(run)
     print(f"sequence: launches in the seed-{SEQ_SEEDS[0]} run {launches}")
     _check(launches["fast_cand"] > 0 and launches["klt_level"] > 0
-           and (runs[0]["stats"]["n_retried"] == 0 or launches["extract"] > 0),
+           and (runs[0]["stats"]["n_retried"] == 0 or launches["orb_describe"] > 0),
            f"the sequence did not run through the kernels: {launches}")
     kernels = sequence_kernels(recorded)
     del recorded
@@ -2012,9 +2088,9 @@ def sequence_recording(batch: int = SEQ_BATCH):
     whose shapes phases 9 and 10 add to the kernel checks: the first
     fast_cand launch of a full extraction batch (``batch`` pairs) and that
     batch's klt_level launches (one per level), and the first fast_cand
-    and extraction launches of the ORB retry pass. Yields
+    and describe launches of the ORB retry pass. Yields
     {(pass, kernel[, level height]): args}."""
-    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.frontend import fast, klt, orb
     from epivo_tpu_torch.pipeline import vo
 
     rec, retry, orb_step = {}, [], vo.vo_step_orb_batched
@@ -2043,14 +2119,14 @@ def sequence_recording(batch: int = SEQ_BATCH):
                    first(klt, "track_level_kernel",
                          lambda src: ("batch", "klt_level", src.shape[-2]) if full(src)
                          else None),
-                   first(klt, "extract_windows_kernel",
-                         lambda img: ("retry", "extract") if retry else None)):
+                   first(orb, "describe_kernel",
+                         lambda img: ("retry", "orb_describe") if retry else None)):
             stack.enter_context(cm)
         yield rec
 
 
 def sequence_kernels(rec: dict, phase: str = "sequence", retry_required: bool = True) -> dict:
-    """fast_cand, klt_level (top and finest level) and the extraction
+    """fast_cand, klt_level (top and finest level) and the describe
     kernel against their plain versions on the inputs a sequence run gave
     them (sequence_recording), with device time and bound. The ORB retry
     batch's rows need a retry pass: required unless ``retry_required`` is
@@ -2060,11 +2136,11 @@ def sequence_kernels(rec: dict, phase: str = "sequence", retry_required: bool = 
     retried = ("retry", "fast_cand") in rec
     need = [("batch", "fast_cand")]
     if retried or retry_required:
-        need += [("retry", "fast_cand"), ("retry", "extract")]
+        need += [("retry", "fast_cand"), ("retry", "orb_describe")]
     _check(all(k in rec for k in need) and len(levels) >= 2,
            f"{phase} recorded launches {sorted(rec)}: a full extraction batch"
            f"{' and an ORB retry batch' if retry_required else ''} expected")
-    out = {"fast_cand": {}, "klt_level": {}, "extract": {}}
+    out = {"fast_cand": {}, "klt_level": {}, "orb_describe": {}}
     for k, what in ((("batch", "fast_cand"), "extraction batch"),
                     (("retry", "fast_cand"), "ORB retry batch")):
         if k not in rec:
@@ -2076,10 +2152,10 @@ def sequence_kernels(rec: dict, phase: str = "sequence", retry_required: bool = 
         win, margin = args[4:6]
         out["klt_level"][f"S{win + 2 * margin + 1}_B{args[0].shape[0]}"] = level_report(
             args, f"{phase}: extraction batch")
-    if ("retry", "extract") in rec:
-        imgs, oy, ox, S = rec["retry", "extract"]
-        out["extract"][f"S{S}_B{imgs.shape[0]}"] = extract_report(
-            imgs, oy, ox, S, f" ({phase}: ORB retry batch)")
+    if ("retry", "orb_describe") in rec:
+        imgs, xy = rec["retry", "orb_describe"]
+        out["orb_describe"][f"S37_B{imgs.shape[0]}"] = describe_report(
+            imgs, xy, f"{phase}: ORB retry batch")
     return out
 
 
@@ -2163,7 +2239,7 @@ def phase_stereo(dev) -> tuple[dict, dict, tuple]:
         runs.append(run)
     l0 = launches[0]
     _check(l0["fast_cand"] > 0 and l0["klt_level"] > 0
-           and (runs[0]["stats"]["n_retried"] == 0 or l0["extract"] > 0),
+           and (runs[0]["stats"]["n_retried"] == 0 or l0["orb_describe"] > 0),
            f"the stereo run did not go through the kernels: {l0}")
     solve = stereo_solve_check(solves, [r["stats"]["solve_s"] for r in runs], dev)
     first = sorted(res0.pair_data)[:STEREO_BATCH]
@@ -2266,11 +2342,11 @@ def loop_recording():
     the loop stage, of its describe call and of each verification call
     (loopclose._vo_pairs), each verification call's result, and the first
     inputs per shape that the describe call gives fast_cand, the dense
-    FAST kernel and the extraction kernel. Yields {"stage": counts,
+    FAST kernel and the describe kernel. Yields {"stage": counts,
     "describe": counts, "pairs": [counts per call], "pair_out": [result
     per call], "inputs": {(kernel, H, W): args}, "stage_call": (the loop
     stage's args, its keywords, its result)}."""
-    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.frontend import fast, orb
     from epivo_tpu_torch.pipeline import loopclose, runners
 
     rec = {"pairs": [], "pair_out": [], "inputs": {}}
@@ -2316,7 +2392,7 @@ def loop_recording():
                    counted(loopclose, "_vo_pairs", "pairs"),
                    first_input(fast, "fast_candidates_kernel", "fast_cand"),
                    first_input(fast, "fast_score_map_kernel", "fast"),
-                   first_input(klt, "extract_windows_kernel", "extract")):
+                   first_input(orb, "describe_kernel", "orb_describe")):
             stack.enter_context(cm)
         yield rec
 
@@ -2413,7 +2489,8 @@ def phase_loop(dev) -> tuple[dict, dict]:
     print(f"loop: launches in the run {launches}; in the loop stage {rec['stage']}, its "
           f"describe call {per_call}, per verification call "
           f"{rec['pairs'][0] if rec['pairs'] else None} ({len(rec['pairs'])} calls)")
-    _check(per_call["fast_cand"] > 0 and per_call["fast"] > 0 and per_call["extract"] > 0
+    _check(per_call["fast_cand"] > 0 and per_call["fast"] > 0
+           and per_call["orb_describe"] > 0 and per_call["extract"] == 0
            and per_call["klt_level"] == 0,
            f"the loop stage's describe call did not run through the kernels: {per_call}")
     _check(len(rec["pairs"]) == n_calls - 1
@@ -2447,7 +2524,7 @@ def phase_loop(dev) -> tuple[dict, dict]:
     # The kernels at the keyframe pyramid's shapes, on the describe call's
     # inputs of the runner run.
     inputs = rec["inputs"]
-    kernels = {"fast_cand": {}, "fast": {}, "extract": {}}
+    kernels = {"fast_cand": {}, "fast": {}, "orb_describe": {}}
     for (kernel, Hl, Wl), args in sorted(inputs.items(), key=lambda kv: -kv[0][1]):
         img = args[0]
         tag = f"{Hl}x{Wl}_B{img.shape[0]}"
@@ -2456,8 +2533,7 @@ def phase_loop(dev) -> tuple[dict, dict]:
         elif kernel == "fast":
             kernels[kernel][tag] = dense_report(img, args[1], "loop: describe")
         else:
-            kernels[kernel][f"S{args[3]}_{tag}"] = extract_report(*args[:4],
-                                                                  f" (loop: describe {tag})")
+            kernels[kernel][f"S37_{tag}"] = describe_report(*args[:2], f"loop: describe {tag}")
     _check(all(kernels[k] for k in kernels), f"loop: no recorded inputs for "
            f"{[k for k in kernels if not kernels[k]]}")
     print(f"loop: limits: Sim(3) ATE <= {LOOP_ATE_PCT:.3f} %, endpoint gap <= "
@@ -2640,7 +2716,8 @@ def phase_five_point(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     mem1 = torch.cuda.max_memory_allocated() / 1e9
     launches = launches_now()
-    per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0}
+    per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0,
+                "orb_describe": 0}
     _check(launches == {k: v * n_steps for k, v in per_step.items()},
            f"5-point launch counts {launches} != {per_step} per step x {n_steps}")
     for r in results:
@@ -3095,14 +3172,16 @@ def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
 
     # Each rank's launches in its _extract_pairs(mesh=) run, counted from
     # 0 just before it: the KLT pass per call at the lanes its steps saw,
-    # and the ORB retry pass (fast_cand 1 / extract 1 per call). A step on
+    # and the ORB retry pass (fast_cand 1 / orb_describe 1 per call). A step on
     # a rank's lanes also ran under set_sync_debug_mode("error").
-    want = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0}
+    want = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0,
+            "orb_describe": 0}
     n_calls = -(-len(pairs) // SEQ_BATCH)
     for r in outs:
         la = r["launches"]
         n_r = len(la["retry_lanes"])
-        want_retry = {"fast": 0, "fast_cand": n_r, "klt_level": 0, "extract": n_r, "lk": 0}
+        want_retry = {"fast": 0, "fast_cand": n_r, "klt_level": 0, "extract": 0, "lk": 0,
+                      "orb_describe": n_r}
         _check(la["step_lanes"] == [SEQ_BATCH // 2] * n_calls
                and la["klt"] == {k: v * n_calls for k, v in want.items()}
                and la["retry"] == want_retry,
@@ -3249,6 +3328,8 @@ KERNELS = {
                 "epivo_tpu/frontend/pallas_klt.py:211"),
     "lk": ("epivo_tpu_torch/csrc/klt_lk.cu",
            "epivo_tpu/frontend/pallas_klt.py:75"),
+    "orb_describe": ("epivo_tpu_torch/csrc/orb_describe.cu",
+                     "epivo_tpu/frontend/pallas_klt.py:211"),
 }
 
 
@@ -3425,7 +3506,8 @@ def phase_entry_points(dev, runtime_build, frames, gt, stereo) -> tuple[dict, di
         args[2].manual_seed(0)
         again = fn(*args)
         torch.cuda.synchronize()
-        _check(la == {"fast": 0, "fast_cand": 1, "klt_level": 4, "extract": 0, "lk": 0},
+        _check(la == {"fast": 0, "fast_cand": 1, "klt_level": 4, "extract": 0, "lk": 0,
+                      "orb_describe": 0},
                f"entry(): launches {la}")
         _check(all(bool(torch.isfinite(f.float()).all()) for f in out),
                "entry(): non-finite outputs")
@@ -3449,7 +3531,7 @@ def phase_entry_points(dev, runtime_build, frames, gt, stereo) -> tuple[dict, di
         # One fast_cand and one klt_level a level per SEQ_BATCH-pair call.
         calls = -(-res.stats["n_pairs"] // SEQ_BATCH)
         _check(klt_pass == {"fast": 0, "fast_cand": calls, "klt_level": 4 * calls,
-                            "extract": 0, "lk": 0},
+                            "extract": 0, "lk": 0, "orb_describe": 0},
                f"run_kitti --mode ba: KLT pass launches {klt_pass} in {calls} calls")
         cli_artifacts(out_ba, res, "ba")
         ba_cfg = BAConfig(camera=kitti.KittiSequence(mono, "00").intrinsics(),
@@ -3561,7 +3643,7 @@ def phase_bench(f0, f1, cfg, smi: str) -> tuple[dict, dict]:
     calls = (2 + q["n_reps"]) * q["n_batch_iters"]  # the two warm runs' too
     launches = launches_now()
     per_call = {"fast": 0, "fast_cand": 1, "klt_level": cfg.frontend.klt_levels,
-                "extract": 0, "lk": 0}
+                "extract": 0, "lk": 0, "orb_describe": 0}
     _check(launches == {k: v * calls for k, v in per_call.items()},
            f"bench: launches {launches} over {calls} vo_step_batched calls in "
            f"measure_batched, not {per_call} per call")
@@ -3634,7 +3716,7 @@ def main() -> int:
     batched = timed("batched", phase_batched, f0, f1, gt, cfg)
     ba_report = timed("ba", phase_ba, dev)
     orb = timed("orb", phase_orb, f0, f1, gt, cfg)
-    report["extract"]["orb"] = orb["extract"]
+    report["orb_describe"] = dict(orb["orb_describe"]["S37_B2"], orb=orb.pop("orb_describe"))
     report["fast"]["orb_pyramid"] = orb.pop("fast_dense")
     sequence, seq_kernels, seq_runs = timed("sequence", phase_sequence, dev)
     for k, rows in seq_kernels.items():

@@ -86,6 +86,7 @@ COUNTERS = (
     ("epivo_tpu_torch.frontend.klt", "EXTRACT_LAUNCHES"),
     ("epivo_tpu_torch.frontend.klt", "LK_LAUNCHES"),
     ("epivo_tpu_torch.frontend.klt", "LEVEL_LAUNCHES"),
+    ("epivo_tpu_torch.frontend.orb", "DESCRIBE_LAUNCHES"),
 )
 
 

@@ -42,12 +42,16 @@ _SIGNATURES = {
     "epivo_extract_windows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # tgt, T, Ix, Iy, q0, q_out, err, K, S, win, iters, eps, hi, stream
     "epivo_lk_iterate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # S, win -> bytes of dynamic shared memory per block of the LK kernel
+    "epivo_lk_iterate_smem": (_I, _I),
     # src, tgt, pt_src, guess, new_guess, ok, err, B, H, W, K, S, win,
     # chunk_iters, n_chunks, eps, min_eig, hi, stream
     "epivo_track_level": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _F, _F, _F, _P),
     # S, win -> bytes of dynamic shared memory per block of the level kernel
     "epivo_track_level_smem": (_I, _I),
+    # img, xy, pattern, signs, packed, angle, B, H, W, K, hi, stream
+    "epivo_orb_describe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _lib: ctypes.CDLL | None = None

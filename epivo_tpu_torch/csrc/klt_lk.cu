@@ -13,16 +13,27 @@
 //
 // What bounds it on the H100: latency, not bytes or FLOPs. A keypoint
 // reads (S*S + 3*win*win) floats once (14 KB at S = 46) and then runs
-// `iters` dependent steps of ~10 flops per pixel, each ending in a block
+// `iters` dependent steps of ~16 flops per pixel, each ending in a
 // reduction and a scalar update.
 //
-// Design: one block of 256 threads per keypoint (keypoint-major [K, S, S];
-// the reference's lane-major [S, S, K] layout is TPU-only). The target
-// window and T/Ix/Iy live in shared memory for all iterations; each thread
-// owns about two patch pixels. Sums are reduced with warp shuffles, then
-// across the 8 warps through shared memory; thread 0 updates q and the
-// freeze flag, and a barrier publishes them. A frozen keypoint stops
-// iterating (its q no longer changes, so the result is the same).
+// Design (klt_level.cu's structure, without its extraction and template):
+// one warp per keypoint, kWarps keypoints per block, and no block barrier.
+// Each warp owns its slice of dynamic shared memory, the target window
+// and T, Ix, Iy (S^2 + 3 win^2 floats: 13.8 KB at S = 46, win = 21), and
+// stages it with 4-byte cp.async (T/Ix/Iy rows of win = 21 floats are not
+// 16-byte aligned). With 4 warps a block takes 55 KB at S = 46, and
+// K = 512 keypoints make 128 blocks, one per SM on 128 of the 132 SMs,
+// each SM running four independent chains, one per scheduler. G, b and
+// err are summed with 5 xor-shuffle stages: every lane ends with the same
+// bits (float addition commutes), so every lane updates q itself and the
+// freeze decision is uniform across the warp. There is no thread-0 step
+// and no barrier in the chain: an iteration is its pixel loop, the
+// shuffles and a few scalar operations. The earlier design (one block
+// of 256 threads per keypoint, a block reduction through shared memory,
+// thread 0 updating q behind two barriers per iteration) took 1.2-1.3x
+// this one's device time (PERF.md §6): with 14 pixels per lane an
+// iteration's own work, not its barriers, is most of the chain. Unrolling
+// the pixel loop by 4 moved it by 1 %.
 //
 // The bilinear weights, the four-tap blend and the update use the plain
 // version's expressions with round-to-nearest intrinsics, so nvcc cannot
@@ -34,34 +45,45 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;  // keypoints per block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Sum three per-thread values over the block; the totals are valid in
-// thread 0 only. `red` holds 3 * kWarps floats.
-__device__ void block_sum3(float& a, float& b, float& c, float* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-    c += __shfl_down_sync(0xffffffffu, c, off);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red[warp] = a;
-    red[kWarps + warp] = b;
-    red[2 * kWarps + warp] = c;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    a = red[0];
-    b = red[kWarps];
-    c = red[2 * kWarps];
-    for (int w = 1; w < kWarps; ++w) {
-      a += red[w];
-      b += red[kWarps + w];
-      c += red[2 * kWarps + w];
+__host__ __device__ constexpr int floats_per_warp(int S, int win) {
+  return S * S + 3 * win * win;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+// Copy n contiguous floats into shared memory, lane-strided.
+__device__ __forceinline__ void load(float* dst, const float* src, int n, int lane) {
+  for (int i = lane; i < n; i += 32) cp_async4(dst + i, src + i);
+}
+
+// Row-major walk of lane, lane + 32, ... over an n x n grid, keeping the
+// (row, column) pair without a division per step.
+struct Walk {
+  int r, c, dr, dc, n;
+  __device__ Walk(int lane, int n_)
+      : r(lane / n_), c(lane % n_), dr(32 / n_), dc(32 % n_), n(n_) {}
+  __device__ void next() {
+    c += dc;
+    r += dr;
+    if (c >= n) {
+      c -= n;
+      ++r;
     }
   }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
 }
 
 // Bilinear sample of the win x win patch pixel (r, c) at integer corner
@@ -82,103 +104,106 @@ __global__ void __launch_bounds__(kThreads)
 lk_iterate_kernel(const float* __restrict__ tgt, const float* __restrict__ T,
                   const float* __restrict__ Ix, const float* __restrict__ Iy,
                   const float* __restrict__ q0, float* __restrict__ q_out,
-                  float* __restrict__ err_out, int S, int win, int iters,
-                  float eps, float hi) {
+                  float* __restrict__ err_out, int K, int S, int win,
+                  int iters, float eps, float hi) {
   extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = blockIdx.x * kWarps + warp;
+  if (k >= K) return;  // whole warps only; no block barrier follows
   const int n = win * win;
-  float* s_tgt = smem;          // [S * S]
-  float* s_T = s_tgt + S * S;   // [n]
-  float* s_Ix = s_T + n;        // [n]
-  float* s_Iy = s_Ix + n;       // [n]
-  __shared__ float red[3 * kWarps];
-  __shared__ float s_q[2];
-  __shared__ int s_done;
-  __shared__ float s_G[4];      // Gxx, Gxy, Gyy, inv_det
+  float* s_tgt = smem + (size_t)warp * floats_per_warp(S, win);  // [S, S]
+  float* s_T = s_tgt + S * S;                                     // [win, win]
+  float* s_Ix = s_T + n;
+  float* s_Iy = s_Ix + n;
 
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* tk = tgt + (size_t)k * S * S;
-  for (int i = tid; i < S * S; i += kThreads) s_tgt[i] = tk[i];
+  // The template's three planes first (G needs two of them), then the
+  // target window, each its own commit group.
+  load(s_T, T + (size_t)k * n, n, lane);
+  load(s_Ix, Ix + (size_t)k * n, n, lane);
+  load(s_Iy, Iy + (size_t)k * n, n, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  load(s_tgt, tgt + (size_t)k * S * S, S * S, lane);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  float qx = fminf(fmaxf(q0[2 * k], 0.0f), hi);
+  float qy = fminf(fmaxf(q0[2 * k + 1], 0.0f), hi);
+
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncwarp();
   float gxx = 0.f, gxy = 0.f, gyy = 0.f;
-  for (int i = tid; i < n; i += kThreads) {
-    const size_t g = (size_t)k * n + i;
-    const float ix = Ix[g], iy = Iy[g];
-    s_T[i] = T[g];
-    s_Ix[i] = ix;
-    s_Iy[i] = iy;
+  for (int i = lane; i < n; i += 32) {
+    const float ix = s_Ix[i], iy = s_Iy[i];
     gxx += ix * ix;
     gxy += ix * iy;
     gyy += iy * iy;
   }
-  block_sum3(gxx, gxy, gyy, red);
-  if (tid == 0) {
-    const float det = __fsub_rn(__fmul_rn(gxx, gyy), __fmul_rn(gxy, gxy));
-    s_G[0] = gxx;
-    s_G[1] = gxy;
-    s_G[2] = gyy;
-    s_G[3] = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
-    s_q[0] = fminf(fmaxf(q0[2 * k], 0.0f), hi);
-    s_q[1] = fminf(fmaxf(q0[2 * k + 1], 0.0f), hi);
-    s_done = 0;
-  }
-  __syncthreads();
+  gxx = warp_sum(gxx);
+  gxy = warp_sum(gxy);
+  gyy = warp_sum(gyy);
+  const float det = __fsub_rn(__fmul_rn(gxx, gyy), __fmul_rn(gxy, gxy));
+  const float inv_det = fabsf(det) > 1e-12f ? __fdiv_rn(1.0f, det) : 0.0f;
 
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
   for (int it = 0; it < iters; ++it) {
-    if (s_done) break;  // uniform across the block
-    const float qx = s_q[0], qy = s_q[1];
     const float flx = floorf(qx), fly = floorf(qy);
     const int ix0 = (int)flx, iy0 = (int)fly;
     const float fx = __fsub_rn(qx, flx), fy = __fsub_rn(qy, fly);
-    float bx = 0.f, by = 0.f, unused = 0.f;
-    for (int i = tid; i < n; i += kThreads) {
-      const int r = i / win, c = i - r * win;
-      const float dI = __fsub_rn(sample(s_tgt, S, iy0, ix0, r, c, fx, fy), s_T[i]);
+    float bx = 0.f, by = 0.f;
+    Walk w(lane, win);
+    for (int i = lane; i < n; i += 32, w.next()) {
+      const float dI =
+          __fsub_rn(sample(s_tgt, S, iy0, ix0, w.r, w.c, fx, fy), s_T[i]);
       bx += dI * s_Ix[i];
       by += dI * s_Iy[i];
     }
-    block_sum3(bx, by, unused, red);
-    if (tid == 0) {
-      const float Gxx = s_G[0], Gxy = s_G[1], Gyy = s_G[2], inv_det = s_G[3];
-      // dx = -(Gyy bx - Gxy by) inv_det;  dy = -(-Gxy bx + Gxx by) inv_det
-      const float dx = __fmul_rn(
-          -__fsub_rn(__fmul_rn(Gyy, bx), __fmul_rn(Gxy, by)), inv_det);
-      const float dy = __fmul_rn(
-          -__fadd_rn(__fmul_rn(-Gxy, bx), __fmul_rn(Gxx, by)), inv_det);
-      s_q[0] = fminf(fmaxf(__fadd_rn(qx, dx), 0.0f), hi);
-      s_q[1] = fminf(fmaxf(__fadd_rn(qy, dy), 0.0f), hi);
-      const float step = sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-      s_done = step < eps;
-    }
-    __syncthreads();
+    bx = warp_sum(bx);
+    by = warp_sum(by);
+    // dx = -(Gyy bx - Gxy by) inv_det;  dy = -(-Gxy bx + Gxx by) inv_det
+    const float dx = __fmul_rn(
+        -__fsub_rn(__fmul_rn(gyy, bx), __fmul_rn(gxy, by)), inv_det);
+    const float dy = __fmul_rn(
+        -__fadd_rn(__fmul_rn(-gxy, bx), __fmul_rn(gxx, by)), inv_det);
+    qx = fminf(fmaxf(__fadd_rn(qx, dx), 0.0f), hi);
+    qy = fminf(fmaxf(__fadd_rn(qy, dy), 0.0f), hi);
+    if (__fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))) < eps)
+      break;  // frozen: q no longer changes
   }
 
   // Mean absolute residual at the final position.
-  const float qx = s_q[0], qy = s_q[1];
   const float flx = floorf(qx), fly = floorf(qy);
   const int ix0 = (int)flx, iy0 = (int)fly;
   const float fx = __fsub_rn(qx, flx), fy = __fsub_rn(qy, fly);
-  float e = 0.f, u1 = 0.f, u2 = 0.f;
-  for (int i = tid; i < n; i += kThreads) {
-    const int r = i / win, c = i - r * win;
-    e += fabsf(__fsub_rn(sample(s_tgt, S, iy0, ix0, r, c, fx, fy), s_T[i]));
-  }
-  block_sum3(e, u1, u2, red);
-  if (tid == 0) {
+  float e = 0.f;
+  Walk w(lane, win);
+  for (int i = lane; i < n; i += 32, w.next())
+    e += fabsf(__fsub_rn(sample(s_tgt, S, iy0, ix0, w.r, w.c, fx, fy), s_T[i]));
+  e = warp_sum(e);
+  if (lane == 0) {
     q_out[2 * k] = qx;
     q_out[2 * k + 1] = qy;
-    err_out[k] = e / (float)n;
+    err_out[k] = __fdiv_rn(e, (float)n);
   }
 }
 
 }  // namespace
+
+// Dynamic shared memory of one block, in bytes.
+extern "C" int epivo_lk_iterate_smem(int S, int win) {
+  return (int)(sizeof(float) * kWarps * floats_per_warp(S, win));
+}
 
 extern "C" int epivo_lk_iterate(const float* tgt, const float* T,
                                 const float* Ix, const float* Iy,
                                 const float* q0, float* q_out, float* err,
                                 int K, int S, int win, int iters, float eps,
                                 float hi, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)S * S + 3 * (size_t)win * win);
-  lk_iterate_kernel<<<K, kThreads, smem, stream>>>(tgt, T, Ix, Iy, q0, q_out,
-                                                   err, S, win, iters, eps, hi);
+  const int smem = epivo_lk_iterate_smem(S, win);
+  const cudaError_t e = cudaFuncSetAttribute(
+      lk_iterate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (K + kWarps - 1) / kWarps;
+  lk_iterate_kernel<<<grid, kThreads, smem, stream>>>(tgt, T, Ix, Iy, q0, q_out,
+                                                      err, K, S, win, iters,
+                                                      eps, hi);
   return (int)cudaGetLastError();
 }

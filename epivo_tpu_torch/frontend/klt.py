@@ -214,16 +214,18 @@ def lk_iterate_kernel(tgt_wins: torch.Tensor, T: torch.Tensor, Ix: torch.Tensor,
             f"{tuple(Iy.shape)}, {tuple(q0.shape)}")
     if S < win + 2:
         raise ValueError(f"window {S} too small for a {win}x{win} patch")
-    if (S * S + 3 * win * win) * 4 > 48 * 1024:
-        raise ValueError(f"S={S}, win={win} exceed the kernel's 48 KB of "
-                         "shared memory")
+    lib = _kernels.lib()
+    smem = lib.epivo_lk_iterate_smem(S, int(win))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"S={S}, win={win} need {smem} B of shared memory per "
+                         f"block, over the {SMEM_PER_BLOCK} B a block may use")
     tgt_wins, T, Ix, Iy, q0 = (a.contiguous() for a in args)
     q = torch.empty((K, 2), dtype=torch.float32, device=tgt_wins.device)
     err = torch.empty(K, dtype=torch.float32, device=tgt_wins.device)
     if K == 0:
         return q, err
     hi = S - win - 1 - 1e-3
-    status = _kernels.lib().epivo_lk_iterate(
+    status = lib.epivo_lk_iterate(
         tgt_wins.data_ptr(), T.data_ptr(), Ix.data_ptr(), Iy.data_ptr(),
         q0.data_ptr(), q.data_ptr(), err.data_ptr(), K, S, int(win),
         int(iters), float(eps), float(hi), _kernels.stream_of(tgt_wins))

@@ -5,12 +5,13 @@
   "oFAST" moment method);
 - rotation-steered binary tests from a fixed, seeded Gaussian BRIEF
   pattern (bit-equal to the reference's);
-- the 37x37 window around each keypoint comes from
-  :func:`klt._extract_windows`, so on a CUDA tensor the window-extraction
-  kernel (``csrc/klt_extract.cu``) runs once per call; the 2 x 256 point
-  samples are bilinear, by direct gathers from those windows. The
-  reference's one-hot-matmul sampler exists only for the TPU and is not
-  ported.
+- on a CUDA tensor one launch of the CUDA kernel ``csrc/orb_describe.cu``
+  (:func:`describe_kernel`) computes a call's descriptors: each 37x37
+  window, its angle, the 256 tests and the packing, with no window in
+  device memory. Its plain version, :func:`describe_plain`, takes the
+  windows from :func:`klt._extract_windows` (a gather) and samples the
+  2 x 256 points bilinearly by direct gathers from them; the reference's
+  one-hot-matmul sampler exists only for the TPU and is not ported.
 
 Descriptors come as {-1, +1} float vectors [..., K, 256], so Hamming
 distance is one matmul (:mod:`epivo_tpu_torch.frontend.match`), plus a
@@ -25,8 +26,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from epivo_tpu_torch._device import constant
+from epivo_tpu_torch import _kernels
+from epivo_tpu_torch._device import constant, kernel_wanted
 from epivo_tpu_torch.frontend import fast as fast_mod, image as imops, klt
+
+# Launches of the CUDA kernel made by this process (never by the plain path).
+DESCRIBE_LAUNCHES = 0
 
 N_BITS = 256
 PATCH = 31  # ORB patch diameter for moments/pattern
@@ -89,15 +94,13 @@ def _sample_points(windows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (1 - fx) * col0 + fx * col1
 
 
-def describe(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor | None = None,
-             use_kernel: bool | None = None) -> Descriptors:
-    """Oriented BRIEF descriptors at keypoints xy [..., K, 2] of img
-    [..., H, W] (no leading axis, or one batch axis). ``use_kernel`` picks
-    the window-extraction route (:func:`klt.extract_windows`)."""
-    wins, origins = klt._extract_windows(img, xy, _S, use_kernel)
+def describe_windows(wins: torch.Tensor, origins: torch.Tensor, xy: torch.Tensor):
+    """The descriptor chain on windows [..., K, S, S] whose top-left
+    corners are ``origins`` [..., K, 2] (x, y), at keypoints xy [..., K, 2]:
+    (signs [..., K, 256], packed [..., K, 8], angle [..., K])."""
     ang = orientation(wins)
     ca, sa = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
-    ax, ay, bx, by = constant(_PATTERN, img.dtype, img.device).unbind(-1)
+    ax, ay, bx, by = constant(_PATTERN, wins.dtype, wins.device).unbind(-1)
 
     ctr = xy - origins  # keypoint position within its window
 
@@ -108,12 +111,72 @@ def describe(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor | None = N
 
     va = _sample_points(wins, positions(ax, ay))
     vb = _sample_points(wins, positions(bx, by))
-    signs = torch.where(va > vb, 1.0, -1.0).to(img.dtype)  # [..., K, 256]
+    signs = torch.where(va > vb, 1.0, -1.0).to(wins.dtype)  # [..., K, 256]
 
     bits = (signs > 0).long().reshape(*signs.shape[:-1], 8, 32)
-    weights = 1 << torch.arange(32, dtype=torch.int64, device=img.device)
+    weights = 1 << torch.arange(32, dtype=torch.int64, device=wins.device)
     packed = torch.sum(bits * weights, dim=-1).to(torch.uint32)  # [..., K, 8]
+    return signs, packed, ang
 
+
+def describe_plain(img: torch.Tensor, xy: torch.Tensor):
+    """(signs, packed, angle) of :func:`describe` in plain torch (the CPU
+    path and the kernel's oracle): the windows by
+    :func:`klt._extract_windows`'s gather, then :func:`describe_windows`."""
+    wins, origins = klt._extract_windows(img, xy, _S, use_kernel=False)
+    return describe_windows(wins, origins, xy)
+
+
+def describe_kernel(img: torch.Tensor, xy: torch.Tensor):
+    """(signs, packed, angle) by the CUDA kernel ``csrc/orb_describe.cu``,
+    one launch on the current stream, with no host sync; bit-equal to
+    :func:`describe_plain` for finite xy. img [B, H, W] float32 with xy
+    [B, K, 2], or [H, W] with [K, 2]. A non-finite coordinate gets the
+    window at origin 0 here (the kernel clamps it to +-1e8 before the
+    integer conversion), while the plain route's conversion of it is
+    undefined."""
+    global DESCRIBE_LAUNCHES
+    if not img.is_cuda:
+        raise ValueError("describe_kernel needs a CUDA tensor")
+    if img.dim() == 2 and xy.dim() == 2:
+        signs, packed, ang = describe_kernel(img[None], xy[None])
+        return signs[0], packed[0], ang[0]
+    if img.dtype != torch.float32 or xy.dtype != torch.float32 or img.dim() != 3:
+        raise ValueError(f"expected float32 [B, H, W] and [B, K, 2], got {img.dtype} "
+                         f"{tuple(img.shape)} and {xy.dtype} {tuple(xy.shape)}")
+    B, H, W = img.shape
+    if xy.dim() != 3 or xy.shape[0] != B or xy.shape[2] != 2:
+        raise ValueError(f"keypoints must be [{B}, K, 2], got {tuple(xy.shape)}")
+    if xy.device != img.device:
+        raise ValueError("keypoints must be on the image's device")
+    if min(H, W) < _S:
+        raise ValueError(f"the {_S}x{_S} window does not fit a {H}x{W} image")
+    K = xy.shape[1]
+    img, xy = img.contiguous(), xy.contiguous()
+    signs = torch.empty((B, K, N_BITS), dtype=img.dtype, device=img.device)
+    packed = torch.empty((B, K, N_BITS // 32), dtype=torch.uint32, device=img.device)
+    ang = torch.empty((B, K), dtype=img.dtype, device=img.device)
+    if B * K == 0:
+        return signs, packed, ang
+    pattern = constant(_PATTERN, torch.float32, img.device)
+    status = _kernels.lib().epivo_orb_describe(
+        img.data_ptr(), xy.data_ptr(), pattern.data_ptr(), signs.data_ptr(),
+        packed.data_ptr(), ang.data_ptr(), B, H, W, K, float(_S - 1.001),
+        _kernels.stream_of(img))
+    _kernels.check(status, "epivo_orb_describe")
+    DESCRIBE_LAUNCHES += 1
+    return signs, packed, ang
+
+
+def describe(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor | None = None,
+             use_kernel: bool | None = None) -> Descriptors:
+    """Oriented BRIEF descriptors at keypoints xy [..., K, 2] of img
+    [..., H, W] (no leading axis, or one batch axis): the kernel on a CUDA
+    tensor, the plain version on a CPU tensor (``use_kernel`` overrides)."""
+    if kernel_wanted(img, use_kernel):
+        signs, packed, ang = describe_kernel(img, xy)
+    else:
+        signs, packed, ang = describe_plain(img, xy)
     v = (torch.ones(xy.shape[:-1], dtype=torch.bool, device=img.device)
          if valid is None else valid)
     return Descriptors(signs=signs, packed=packed, angle=ang, valid=v)

@@ -173,7 +173,7 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
     import time
 
     from epivo_tpu_torch import _graphs, ransac
-    from epivo_tpu_torch.frontend import fast, klt
+    from epivo_tpu_torch.frontend import fast, klt, orb
     from epivo_tpu_torch.pipeline import runners, stream, vo
 
     win = mesh_mod.make_mesh(2, 1, device_type=dev.type)
@@ -181,11 +181,12 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     counts = lambda: {"fast": fast.KERNEL_LAUNCHES, "fast_cand": fast.CAND_LAUNCHES,
                       "klt_level": klt.LEVEL_LAUNCHES, "extract": klt.EXTRACT_LAUNCHES,
-                      "lk": klt.LK_LAUNCHES}
+                      "lk": klt.LK_LAUNCHES, "orb_describe": orb.DESCRIBE_LAUNCHES}
 
     def reset():
         fast.KERNEL_LAUNCHES = fast.CAND_LAUNCHES = 0
         klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
+        orb.DESCRIBE_LAUNCHES = 0
 
     out, wall, st = {}, {}, {}
     # The extraction with every step eager (graph=False), which the graphed

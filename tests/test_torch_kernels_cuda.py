@@ -19,9 +19,13 @@ Both fused kernels also run at B = 8, the batched step's batch. Window
 extraction also runs at S = 37, the ORB descriptor's window, for the two
 frames of one ORB step and the 16 of a batch of 8 pairs.
 
-The ORB step launches the candidate kernel once and the extraction kernel
-once (single scale), and 6 / 2 / 8 times candidate / dense / extraction
-on the 8-level pyramid of a 376x1241 frame; ``vo_step_orb_batched`` at
+The ORB describe kernel is bit-equal to the plain describe (signs, packed
+and angle) at B = 1, 2 and 16, with invalid lanes and keypoints at and
+beyond the image border (clamped origins), on the corridor frames and on
+a pyramid level. The ORB step launches the candidate kernel once and the
+describe kernel once (single scale), and 6 / 2 / 8 times candidate /
+dense / describe on the 8-level pyramid of a 376x1241 frame, and the
+extraction kernel never; ``vo_step_orb_batched`` at
 B = 2 on the kernels against the plain path with the same samples: equal
 matches, rotation and translation direction within 2e-3.
 
@@ -39,7 +43,7 @@ import pytest
 import torch
 
 from epivo_tpu_torch.datasets import photoreal
-from epivo_tpu_torch.frontend import fast, image, klt
+from epivo_tpu_torch.frontend import fast, image, klt, orb
 from epivo_tpu_torch.geometry import se3
 from epivo_tpu_torch.geometry.camera import Pinhole
 from epivo_tpu_torch.optim import lm
@@ -137,6 +141,43 @@ def test_extract_kernel_exact(dev, B, S):
     out = klt.extract_windows_kernel(img, oy, ox, S)
     torch.cuda.synchronize()
     assert torch.equal(out, klt.extract_windows_plain(img, oy, ox, S))
+
+
+def _bits_equal(a, b):
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,level", [(1, 0), (2, 0), (16, 0), (2, 3)])
+def test_orb_describe_kernel_bit_equal(dev, B, level):
+    frames, _, _ = photoreal.corridor_sequence(2, H=376, W=1241, seed=0)
+    f = torch.from_numpy(np.stack(list(frames)).astype(np.float32)).to(dev)
+    imgs = torch.cat([f, f.flip(-1) + 0.25] * 8)[:B].contiguous()
+    for _ in range(level):  # a pyramid level (non-integer pixels), as orb builds it
+        nh, nw = round(imgs.shape[-2] / 1.2), round(imgs.shape[-1] / 1.2)
+        imgs = image.resize_linear(image._sep_conv3(imgs, (0.25, 0.5, 0.25),
+                                                    (0.25, 0.5, 0.25)), nh, nw)
+    h, w = imgs.shape[-2:]
+    # Border points clamp their origins; every fifth lane is invalid.
+    kp = fast.detect(imgs, 40.0, 512)
+    edge = torch.tensor([[0.0, 0.0], [w - 1.0, h - 1.0], [-6.0, h + 4.0], [w + 0.5, 3.5],
+                         [18.5, 18.5], [w - 18.5, h - 17.5], [w / 2 + 0.5, 0.0], [2.0, h / 2]],
+                        device=dev)
+    xy = torch.cat([kp.xy[:, :-8], edge.expand(B, -1, -1)], 1).contiguous()
+    valid = torch.cat([kp.valid[:, :-8], torch.ones(B, 8, dtype=torch.bool, device=dev)], 1)
+    valid[:, 1::5] = False
+    before = orb.DESCRIBE_LAUNCHES
+    d_k = orb.describe(imgs, xy, valid)
+    d_p = orb.describe(imgs, xy, valid, use_kernel=False)
+    torch.cuda.synchronize()
+    assert orb.DESCRIBE_LAUNCHES == before + 1
+    for a, b in zip(d_k, d_p):
+        assert _bits_equal(a, b)
+    # No batch axis: the same kernel on [H, W] and [K, 2].
+    one = orb.describe_kernel(imgs[0], xy[0])
+    for a, b in zip(one, d_p[:3]):
+        assert _bits_equal(a, b[0])
 
 
 def _level_inputs(dev, S, level):
@@ -287,11 +328,12 @@ def _orb_case(dev, pyramid=False):
     return f0, f1, cfg
 
 
-@pytest.mark.parametrize("pyramid,expect", [(False, (0, 1, 1, 0, 0)), (True, (2, 6, 8, 0, 0))])
+@pytest.mark.parametrize("pyramid,expect", [(False, (0, 1, 0, 0, 0, 1)),
+                                            (True, (2, 6, 0, 0, 0, 8))])
 def test_vo_step_orb_launches(dev, pyramid, expect):
     f0, f1, cfg = _orb_case(dev, pyramid)
     counts = lambda: (fast.KERNEL_LAUNCHES, fast.CAND_LAUNCHES, klt.EXTRACT_LAUNCHES,
-                      klt.LK_LAUNCHES, klt.LEVEL_LAUNCHES)
+                      klt.LK_LAUNCHES, klt.LEVEL_LAUNCHES, orb.DESCRIBE_LAUNCHES)
     before = counts()
     res = vo.vo_step_orb(f0, f1, torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()

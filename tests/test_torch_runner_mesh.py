@@ -134,7 +134,8 @@ def test_card_check_on_cpu():
     gcfg = dataclasses.replace(CFG, global_ba=GlobalBAConfig(enabled=True))
     outs = multihost.spawn(mesh_checks.card_check, 2, frames, pairs, VO_CFG,
                            dict(n_points=32, batch=4), ba_in, zetas, single, gcfg, ransac_in)
-    zero = {"fast": 0, "fast_cand": 0, "klt_level": 0, "extract": 0, "lk": 0}
+    zero = {"fast": 0, "fast_cand": 0, "klt_level": 0, "extract": 0, "lk": 0,
+            "orb_describe": 0}
     for r in outs:
         la = r["launches"]
         # 9 pairs in calls of 4, 4 and 1: each rank steps 2, 2 and 1 lanes.
