@@ -32,6 +32,17 @@ absent); a new shape is a new key, as a new shape is a new jit.
 - The least recently used entry goes when a 17th key is captured; the
   least recently seen key when a 17th is seen once.
 
+What the cache built is counted on it (:class:`BuildTotals`, read by
+:func:`build_totals`): eager first calls and captures with their host
+seconds, replays and evictions, totals that outlive the entries. The
+seconds leave out the kernel library's compile (``_kernels.build_s``),
+which only a checkout without the built library pays. Each
+call opens host spans while a ``torch.profiler`` runs
+(``utils/profiling.py::span``): ``graph.eager`` for a first call,
+``graph.capture`` for a second (warm-up, recording, instantiation), and
+``graph.fill`` (the ``Fill`` draws and input copies), ``graph.replay``
+and ``graph.clone`` (the output clones) for a replay.
+
 The kernels' launch counters (``frontend/fast.py``, ``frontend/klt.py``)
 and the mesh's collectives counter (``parallel/mesh.py``'s
 ``COLLECTIVES``) are Python numbers that a wrapper bumps when its Python
@@ -75,7 +86,9 @@ from typing import Any, Callable, Hashable, NamedTuple
 
 import torch
 
+from epivo_tpu_torch import _kernels
 from epivo_tpu_torch.parallel import mesh as mesh_mod
+from epivo_tpu_torch.utils import profiling
 
 MAX_ENTRIES = 16  # as the reference's lru_cache(maxsize=16)
 
@@ -184,6 +197,18 @@ class Entry:
     collectives: dict = dataclasses.field(default_factory=dict)  # per replay
 
 
+@dataclasses.dataclass
+class BuildTotals:
+    """What a cache built and ran since it was made, kept across evictions."""
+
+    eager: int = 0  # first calls of a key, run eagerly
+    eager_s: float = 0.0  # their host seconds
+    captures: int = 0  # second calls, captured
+    capture_s: float = 0.0  # their host seconds: warm-up, recording, instantiation
+    replays: int = 0
+    evictions: int = 0  # captured entries dropped by the LRU
+
+
 class CudaCapture:
     """Warm-up and capture on the card, on one side stream per device."""
 
@@ -243,6 +268,7 @@ class GraphCache:
         self.capturer = capturer if capturer is not None else CudaCapture()
         self.entries: collections.OrderedDict = collections.OrderedDict()
         self.seen: collections.OrderedDict = collections.OrderedDict()  # called once
+        self.totals = BuildTotals()
 
     def __call__(self, fn: Callable, static: Hashable, *args):
         key = (fn, static, tuple(_spec(a) for a in args))
@@ -252,23 +278,35 @@ class GraphCache:
                 self.seen[key] = True
                 while len(self.seen) > self.maxsize:
                     self.seen.popitem(last=False)
-                return fn(static, *_filled(args))
-            return self._capture(key, fn, static, args)
+                with profiling.span("graph.eager"):
+                    t0, built = time.perf_counter(), _kernels.build_s
+                    out = fn(static, *_filled(args))
+                    self.totals.eager += 1
+                    self.totals.eager_s += (time.perf_counter() - t0
+                                            - (_kernels.build_s - built))
+                return out
+            with profiling.span("graph.capture"):
+                return self._capture(key, fn, static, args)
         self.entries.move_to_end(key)
-        for buf, a in zip(entry.inputs, args):
-            if isinstance(a, Fill):
-                a.fill(buf)
-            elif a is not None:
-                buf.copy_(a)
-        entry.graph.replay()
+        with profiling.span("graph.fill"):
+            for buf, a in zip(entry.inputs, args):
+                if isinstance(a, Fill):
+                    a.fill(buf)
+                elif a is not None:
+                    buf.copy_(a)
+        with profiling.span("graph.replay"):
+            entry.graph.replay()
         entry.replays += 1
+        self.totals.replays += 1
         _add_launches(entry.launches)
         _add_collectives(entry.collectives)
-        return _map(torch.clone, entry.outputs)
+        with profiling.span("graph.clone"):
+            return _map(torch.clone, entry.outputs)
 
     def _capture(self, key, fn, static, args):
         device = next(torch.device(s[2]) for s in key[2] if s is not None)
         eager_args = _filled(args)
+        built = _kernels.build_s
         t0 = time.perf_counter()
         out = self.capturer.warmup(fn, static, eager_args, device)
         warmup_s = time.perf_counter() - t0
@@ -286,8 +324,11 @@ class GraphCache:
         self.entries[key] = Entry(graph, inputs, outputs, delta, capture_s, pool,
                                   warmup_s=warmup_s, instantiate_s=instantiate_s,
                                   collectives={k: n for k, n in delta_c.items() if n})
+        self.totals.captures += 1
+        self.totals.capture_s += warmup_s + capture_s - (_kernels.build_s - built)
         while len(self.entries) > self.maxsize:
             self.entries.popitem(last=False)
+            self.totals.evictions += 1
         return out
 
 
@@ -298,3 +339,8 @@ def run(fn: Callable, static: Hashable, *args):
     """``fn(static, *args)`` through the process's graph cache (see the
     module docstring)."""
     return CACHE(fn, static, *args)
+
+
+def build_totals() -> dict:
+    """The process's graph cache's :class:`BuildTotals` as a dict."""
+    return dataclasses.asdict(CACHE.totals)

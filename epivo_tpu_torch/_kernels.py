@@ -19,6 +19,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -52,10 +53,13 @@ _SIGNATURES = {
     "epivo_track_level_smem": (_I, _I),
     # img, xy, pattern, signs, packed, angle, B, H, W, K, hi, stream
     "epivo_orb_describe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # stage (utils/profiling.STAGES' index), stream
+    "epivo_stage_mark": (_I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output of the build this process made (ptxas -v)
+build_s: float = 0.0  # host seconds this process spent compiling the library
 
 
 def _nvcc() -> str:
@@ -78,10 +82,11 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
-    global build_log
+    global build_log, build_s
     out = library_path()
     if out.exists():
         return out
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(CSRC.glob("*.cu"))
     # Build under a temporary name, then rename: concurrent builders never
@@ -114,6 +119,7 @@ def build() -> Path:
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
+            build_s += time.perf_counter() - t0
     return out
 
 

@@ -27,6 +27,7 @@ from epivo_tpu_torch._device import constant
 from epivo_tpu_torch.geometry import epipolar, se3
 from epivo_tpu_torch.optim import lm
 from epivo_tpu_torch.pipeline.config import BAConfig
+from epivo_tpu_torch.utils import profiling
 
 
 class WindowSpec(NamedTuple):
@@ -147,9 +148,10 @@ def ba_windows(
     their initialization.
     """
     del use_lanes
-    static = (tuple(map(tuple, np.asarray(spec.reps).tolist())),
-              None if spec.zeta_mask is None
-              else tuple(np.asarray(spec.zeta_mask, bool).tolist()), config.lm)
+    with profiling.span("ba.windows"):
+        static = (tuple(map(tuple, np.asarray(spec.reps).tolist())),
+                  None if spec.zeta_mask is None
+                  else tuple(np.asarray(spec.zeta_mask, bool).tolist()), config.lm)
     if _graphs.wanted(T0s, graph):
         return _graphs.run(_solve, static, T0s, p, p_t, wreps, pmask)
     return _solve(static, T0s, p, p_t, wreps, pmask)

@@ -123,15 +123,19 @@ def _gather_lanes(x: torch.Tensor | None, n: int, mesh):
     return mesh_mod.gather_rows(x, mesh, "win")[:n]
 
 
-def _pair_inputs(get, pairs: list, dev):
+def _pair_inputs(get, pairs: list, dev, **ids):
     """(src, tgt [len(pairs), H, W]) on ``dev`` for frame pairs (i, j),
-    each distinct frame ``get(i)`` uploaded once."""
-    ids = sorted({f for pr in pairs for f in pr})
-    pos = {f: k for k, f in enumerate(ids)}
-    stack = _upload(np.stack([get(f) for f in ids]), dev)
-    pick = lambda side: stack.index_select(
-        0, to_device([pos[pr[side]] for pr in pairs], torch.int64, dev))
-    return pick(0), pick(1)
+    each distinct frame ``get(i)`` uploaded once; ``ids`` (a batch's index
+    and first frame) go on the spans ``vo.stack`` and ``vo.upload``."""
+    frames = sorted({f for pr in pairs for f in pr})
+    pos = {f: k for k, f in enumerate(frames)}
+    with profiling.span("vo.stack", **ids):
+        host = np.stack([get(f) for f in frames])
+    with profiling.span("vo.upload", **ids):
+        stack = _upload(host, dev)
+        pick = lambda side: stack.index_select(
+            0, to_device([pos[pr[side]] for pr in pairs], torch.int64, dev))
+        return pick(0), pick(1)
 
 
 def _batched_vo(config: VOConfig, collect_cloud: bool = True, hyp_mesh=None):
@@ -187,6 +191,14 @@ def run_vo_sequence(
     With ``mesh`` the pairs of each batch are split over its ``win`` axis
     (``batch`` rounds up to a multiple of it); see the module docstring.
     """
+    with profiling.span("vo.sequence", seed=seed):
+        return _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud,
+                                checkpoint_dir, checkpoint_every, metrics_path,
+                                pipeline_depth, mesh, device)
+
+
+def _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud, checkpoint_dir,
+                     checkpoint_every, metrics_path, pipeline_depth, mesh, device):
     dev = _mesh_device(mesh, device)
     batch = _mesh_batch(batch, mesh)
     step_fn = _batched_vo(config, collect_cloud=collect_cloud, hyp_mesh=mesh)
@@ -232,21 +244,29 @@ def run_vo_sequence(
 
     def _drain_cloud():
         nonlocal total_pts
-        for cloud_dev, B in cloud_pending:
-            c = cloud_dev.cpu().numpy()[:B]
-            for b in range(B):
-                val = c[b, :, 3] > 0.5
-                clouds.append(c[b, val, :3])
-                limits.append(total_pts)
-                total_pts += int(val.sum())
-        cloud_pending.clear()
+        with profiling.span("vo.cloud"):
+            for cloud_dev, B in cloud_pending:
+                c = cloud_dev.cpu().numpy()[:B]
+                for b in range(B):
+                    val = c[b, :, 3] > 0.5
+                    clouds.append(c[b, val, :3])
+                    limits.append(total_pts)
+                    total_pts += int(val.sum())
+            cloud_pending.clear()
 
-    def on_ready(res, B):
+    def on_ready(res, ctx):
+        B, b = ctx
+        with profiling.span("vo.fetch", b=b, frame=fidx):
+            head, cloud = (_gather_lanes(x, B, mesh) for x in res)
+            h = head.cpu().numpy()[:B]
+        with profiling.span("vo.collect", b=b, frame=fidx):
+            collect(h, cloud, B)
+
+    def collect(h, cloud, B):
+        """A fetched batch's bookkeeping, metrics record and checkpoint."""
         nonlocal fidx
-        head, cloud = (_gather_lanes(x, B, mesh) for x in res)
         if collect_cloud:
             cloud_pending.append((cloud, B))
-        h = head.cpu().numpy()[:B]
         T = h[:, :16].reshape(B, 4, 4)
         scal = h[:, 16:]  # [B, 4] tracked/inliers/r_norm/reverted
         dTs.extend(T)
@@ -276,14 +296,24 @@ def run_vo_sequence(
             ckpt.maybe_save(fidx, state)
 
     pipe = stream.PipelinedDispatch(on_ready, depth=pipeline_depth)
+    n_batches, next_frame = 0, fidx  # the next batch's index and first frame
+
+    def dispatch(src, tgt, g, b, frame):
+        with profiling.span("vo.dispatch", b=b, frame=frame):
+            return step_fn(src, tgt, g)
 
     def flush(buf):
+        nonlocal n_batches, next_frame
         B = len(buf) - 1
         if B < 1:
             return
+        b, frame = n_batches, next_frame
         lanes = _lanes(B, mesh)
-        src, tgt = _pair_inputs(buf.__getitem__, [(q, q + 1) for q in lanes], dev)
-        pipe.submit(lambda s=src, t=tgt, g=_draw(gen, lanes, B, mesh): step_fn(s, t, g), B)
+        src, tgt = _pair_inputs(buf.__getitem__, [(q, q + 1) for q in lanes], dev,
+                                b=b, frame=frame)
+        pipe.submit(lambda s=src, t=tgt, g=_draw(gen, lanes, B, mesh):
+                    dispatch(s, t, g, b, frame), (B, b))
+        n_batches, next_frame = b + 1, frame + B
 
     for f in frames:
         buf.append(np.asarray(f, np.float32))
@@ -294,6 +324,13 @@ def run_vo_sequence(
     pipe.flush()
     _drain_cloud()
 
+    with profiling.span("vo.finish"):
+        return _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog)
+
+
+def _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog) -> SequenceResult:
+    """A run's result after its last fetch: scale, trajectory, world cloud
+    and metrics."""
     dTs = np.stack(dTs).astype(np.float32) if dTs else np.zeros((0, 4, 4), np.float32)
     F = dTs.shape[0]
 

@@ -11,6 +11,12 @@ Every step after image upload runs on the images' device with static
 shapes and no host sync (``chip_smoke.py`` runs the batched step under
 ``torch.cuda.set_sync_debug_mode("error")``). The single step is the
 batched step of one pair, so there is one code path.
+
+A step that runs the hand-written kernels launches four stage marks on
+its stream while it is captured or profiled (``utils/profiling.py::mark``):
+``frontend`` before detection and tracking or matching, ``estimate``
+before the RANSAC samples, ``refine`` before the top-N selection and the
+LM, ``end`` after triangulation. The plain route carries no marks.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from epivo_tpu_torch.geometry import camera as cam, epipolar, essential, se3
 from epivo_tpu_torch.optim import lm
 from epivo_tpu_torch.parallel import mesh as mesh_mod
 from epivo_tpu_torch.pipeline.config import VOConfig
+from epivo_tpu_torch.utils import profiling
 
 
 class VOStepResult(NamedTuple):
@@ -67,7 +74,8 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
                    n_tracked: torch.Tensor, matches_src: torch.Tensor,
                    matches_tgt: torch.Tensor, generator: torch.Generator | None,
                    config: VOConfig, ransac_samples: torch.Tensor | None,
-                   too_few: torch.Tensor | None = None, hyp_mesh=None) -> VOStepResult:
+                   too_few: torch.Tensor | None = None, hyp_mesh=None,
+                   use_kernel: bool | None = None) -> VOStepResult:
     """Everything after association, shared by the KLT and ORB steps: B
     pairs of normalized matches p0/p1 [B, K, 3] with their mask
     ``status`` [B, K] -> RANSAC essential, refine-E, recoverPose and its
@@ -78,7 +86,9 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
     ``too_few`` [B] (the ORB step's match gate) replaces a pair's E-pose
     by the identity rotation and translation [0.1, 0.1, -0.9] and forces
     its revert. ``hyp_mesh`` splits RANSAC's hypotheses over a mesh's
-    ``hyp`` axis (:func:`ransac.ransac_essential`).
+    ``hyp`` axis (:func:`ransac.ransac_essential`). ``use_kernel``, the
+    step's, says whether it marks the ``refine`` and ``end`` stages
+    (``utils/profiling.py::mark``).
     """
     rc, lc = config.ransac, config.lm
     dev = p0.device
@@ -101,6 +111,7 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
         t_e = torch.where(too_few[:, None], t_fb, t_e)
     T_e = se3.rt_to_matrix(R_e, t_e)  # [B, 4, 4]
 
+    profiling.mark("refine", p0, use_kernel)
     # Top-N cheirality-passing inliers of each pair for LM refinement: one
     # window per pair, one pose, one constraint.
     sel = rres.inliers & front & status
@@ -125,6 +136,7 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
     R, t = se3.matrix_to_rt(T)
     pts, pts_valid = epipolar.triangulate(R, t, p0, p1)
     track_inl = status & rres.inliers
+    profiling.mark("end", p0, use_kernel)
 
     return VOStepResult(
         T=T,
@@ -177,18 +189,23 @@ def _klt_graphed(static, img0, img1, draw):
     K] of :func:`ransac.draw_uniforms` (``drawn``) or the samples [B,
     n_hyp, m]."""
     config, use_kernel, drawn, hyp = static
+    profiling.mark("frontend", img0, use_kernel)
     m = _klt_matches(img0, img1, config, use_kernel)
+    profiling.mark("estimate", img0, use_kernel)
     return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn),
-                          hyp_mesh=None if hyp is None else hyp.mesh)
+                          hyp_mesh=None if hyp is None else hyp.mesh, use_kernel=use_kernel)
 
 
 def _orb_graphed(static, img0, img1, draw):
     """The captured ORB step, with the 8-match gate; arguments as in
     :func:`_klt_graphed`."""
     config, use_kernel, drawn, hyp = static
+    profiling.mark("frontend", img0, use_kernel)
     m = _orb_matches(img0, img1, config, use_kernel)
+    profiling.mark("estimate", img0, use_kernel)
     return _two_view_tail(*m, None, config, _captured_samples(draw, m[2], config, drawn),
-                          too_few=m[3] < 8, hyp_mesh=None if hyp is None else hyp.mesh)
+                          too_few=m[3] < 8, hyp_mesh=None if hyp is None else hyp.mesh,
+                          use_kernel=use_kernel)
 
 
 def _run_graphed(step, img0, img1, generator, config: VOConfig, ransac_samples,
@@ -271,8 +288,11 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
         return _run_graphed(_klt_graphed, img0, img1, generator, config, ransac_samples,
                             use_kernel, hyp_mesh,
                             fast.n_keypoints(H, W, config.frontend.max_keypoints))
+    profiling.mark("frontend", img0, use_kernel)
     m = _klt_matches(img0, img1, config, use_kernel)
-    return _two_view_tail(*m, generator, config, ransac_samples, hyp_mesh=hyp_mesh)
+    profiling.mark("estimate", img0, use_kernel)
+    return _two_view_tail(*m, generator, config, ransac_samples, hyp_mesh=hyp_mesh,
+                          use_kernel=use_kernel)
 
 
 def orb_associate(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
@@ -344,9 +364,11 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
         H, W = img0.shape[-2:]
         return _run_graphed(_orb_graphed, img0, img1, generator, config, ransac_samples,
                             use_kernel, hyp_mesh, orb.n_keypoints(H, W, config.frontend))
+    profiling.mark("frontend", img0, use_kernel)
     m = _orb_matches(img0, img1, config, use_kernel)
+    profiling.mark("estimate", img0, use_kernel)
     return _two_view_tail(*m, generator, config, ransac_samples, too_few=m[3] < 8,
-                          hyp_mesh=hyp_mesh)
+                          hyp_mesh=hyp_mesh, use_kernel=use_kernel)
 
 
 def vo_step(img0: torch.Tensor, img1: torch.Tensor,

@@ -1,12 +1,17 @@
-"""Stage timers, device traces and a structured metrics sink (port of
+"""Program spans, stage marks and a structured metrics sink (port of
 ``epivo_tpu/utils/profiling.py``).
 
-- :class:`StageTimer`: accumulating per-stage wall timers; with ``fence``
-  each stage ends with ``torch.cuda.synchronize`` (the counterpart of
-  ``jax.block_until_ready``), so a stage's time includes the device work
-  it enqueued.
-- :func:`device_trace`: a ``torch.profiler`` trace of the block, written as
-  a Chrome trace (viewable in Perfetto).
+- :func:`span`: a named host range in a ``torch.profiler`` trace, open
+  only while a profiler runs; otherwise one shared no-op, so the path
+  costs one attribute read a span. No switch of its own: run the program
+  under ``torch.profiler.profile`` and the spans are there, on the device
+  trace's clock, each nested in the span that encloses it on its thread.
+  :data:`SPAN_TOTALS` keeps each name's host seconds meanwhile.
+- :func:`mark`: a one-thread kernel named after a stage of the VO step
+  (``stage_mark_<stage>_kernel``, ``csrc/stage_mark.cu``), launched on
+  the current stream by a step that runs the hand-written kernels, while
+  it is captured into the step's CUDA graph or profiled, so a device
+  trace splits a replay by stage from the kernel records alone.
 - :class:`MetricsLogger`: per-window / per-batch records as JSONL.
 """
 
@@ -14,89 +19,78 @@ from __future__ import annotations
 
 import contextlib
 import json
-import os
 import time
 from typing import Any
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
+
+from epivo_tpu_torch import _kernels
+from epivo_tpu_torch._device import kernel_wanted
+
+# The stages of the VO step in the order the step marks them; the index is
+# the mark's number in ``csrc/stage_mark.cu``. "end" closes the step.
+STAGES = ("frontend", "estimate", "refine", "end")
+_MARKS = {stage: (k, f"stage_mark_{stage}") for k, stage in enumerate(STAGES)}
+
+# Host seconds and count of each span name, summed while a profiler runs:
+# {name: [seconds, spans]}.
+SPAN_TOTALS: dict[str, list] = {}
+
+_OFF = contextlib.nullcontext()
 
 
-def _fence(result) -> None:
-    """Wait for the device work behind ``result`` (a tensor, or a
-    structure holding tensors) to finish."""
-    if result is None:
+class _Span:
+    """An open span: a ``torch.profiler`` range whose concrete inputs are
+    the span's ids (shown with ``record_shapes=True``), timed into
+    :data:`SPAN_TOTALS`."""
+
+    __slots__ = ("name", "ids", "handle", "t0")
+
+    def __init__(self, name: str, ids: tuple):
+        self.name, self.ids = name, ids
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(self.name, *self.ids)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        torch.autograd._record_function_with_args_exit(self.handle)
+        total = SPAN_TOTALS.setdefault(self.name, [0.0, 0])
+        total[0] += dt
+        total[1] += 1
+        return False
+
+
+def span(name: str, **ids):
+    """A host span ``name`` carrying ``ids`` (integers: a call's seed, a
+    batch's index and first frame) while a ``torch.profiler`` runs, else
+    the shared no-op context."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, tuple(ids.values()))
+
+
+def span_totals() -> dict:
+    """{span name: (host seconds, spans)} of the spans closed while a
+    profiler ran, since the process began."""
+    return {k: tuple(v) for k, v in SPAN_TOTALS.items()}
+
+
+def mark(stage: str, like: torch.Tensor, use_kernel: bool | None = None) -> None:
+    """Launch ``stage``'s mark kernel on the current stream of ``like``'s
+    device where the step runs the hand-written kernels
+    (``_device.kernel_wanted(like, use_kernel)``) and a CUDA graph is being
+    captured or a profiler runs; nothing otherwise, so the plain route and
+    an untraced eager step launch none."""
+    if not kernel_wanted(like, use_kernel):
         return
-    leaves = result if isinstance(result, (tuple, list)) else [result]
-    devices = {x.device for x in leaves if isinstance(x, torch.Tensor) and x.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-class StageTimer:
-    """Accumulating per-stage wall timers with optional device fencing."""
-
-    def __init__(self, fence: bool = True):
-        self.fence = fence
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    def _add(self, name: str, dt: float) -> None:
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    @contextlib.contextmanager
-    def stage(self, name: str, result=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.fence:
-                _fence(result)
-            self._add(name, time.perf_counter() - t0)
-
-    def time_fn(self, name: str, fn, *args, **kwargs):
-        """Run fn, fence its output, record the stage time, return output."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.fence:
-            _fence(out)
-        self._add(name, time.perf_counter() - t0)
-        return out
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        return {
-            k: {
-                "total_s": self.totals[k],
-                "count": self.counts[k],
-                "mean_ms": 1000.0 * self.totals[k] / max(self.counts[k], 1),
-            }
-            for k in sorted(self.totals)
-        }
-
-    def report(self) -> str:
-        lines = []
-        for k, v in self.summary().items():
-            lines.append(
-                f"{k:24s} {v['total_s']:8.3f} s  x{v['count']:<5d}"
-                f" {v['mean_ms']:9.2f} ms/call"
-            )
-        return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def device_trace(out_dir: str):
-    """Trace the block with ``torch.profiler`` (host and, when a card is
-    present, device activity) into ``out_dir/trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(out_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    if _profiler._is_profiler_enabled or torch.cuda.is_current_stream_capturing():
+        number, name = _MARKS[stage]
+        _kernels.check(_kernels.lib().epivo_stage_mark(number, _kernels.stream_of(like)), name)
 
 
 class MetricsLogger:

@@ -273,6 +273,43 @@ def test_vo_step_two_stage_launches_fused_fast(dev):
     assert _vo_step_launches(dev, 256, 320) == (0, 1, 0, 0, 3)
 
 
+def test_stage_marks_in_one_replay(dev, tmp_path):
+    """One profiled replay of the batched KLT step holds the four stage
+    mark kernels (``csrc/stage_mark.cu``) in the order the step marks them."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from epivo_tpu_torch import _graphs
+    from epivo_tpu_torch.utils import profiling
+
+    H, W = 256, 320
+    K = np.array([[110.0, 0, W / 2], [0, 110.0, H / 2], [0, 0, 1.0]])
+    frames, _, _ = photoreal.corridor_sequence(3, H=H, W=W, K=K, speed=0.45, seed=11)
+    f = torch.from_numpy(np.stack(list(frames)).astype(np.float32)).to(dev)
+    cfg = config.VOConfig(
+        camera=Pinhole(110.0, 110.0, W / 2, H / 2, W, H),
+        frontend=config.FrontendConfig(fast_threshold=12.0, max_keypoints=128,
+                                       klt_levels=3),
+        ransac=config.RansacConfig(n_hyp=128), lm=config.LMConfig(n_points=16))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = lambda: vo.vo_step_batched(f[:2], f[1:], gen, cfg)
+    step(), step()  # the key's eager call and its capture
+    replays = _graphs.build_totals()["replays"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    assert _graphs.build_totals()["replays"] == replays + 1
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    marks = sorted((ev["ts"], ev["name"]) for ev in events
+                   if ev.get("cat") == "kernel" and "stage_mark_" in ev.get("name", ""))
+    assert len(marks) == len(profiling.STAGES)
+    for (_, name), stage in zip(marks, profiling.STAGES):
+        assert f"stage_mark_{stage}_kernel" in name
+
+
 def _lm_windows(W, seed=0, N=32, noise=1e-4):
     """W two-pose windows of the mono BA spec (spans (0,0), (1,1), (0,1)):
     forward-moving poses, landmarks 12-40 deep, matches with pixel-like

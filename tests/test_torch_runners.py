@@ -175,19 +175,13 @@ def test_photoreal_scoring_matches_reference():
 
 
 def test_profiling_cases(tmp_path):
-    """``utils/profiling.py``: the cases of ``tests/test_aux.py`` (stage
-    timer, fenced ``time_fn``, JSONL logger with tensors), and a CPU
-    ``device_trace`` that writes its trace."""
+    """``utils/profiling.py``: the JSONL logger case of ``tests/test_aux.py``
+    (with tensors), and a span: the shared no-op without a profiler, a
+    named range counted into ``SPAN_TOTALS`` with one."""
+    from torch.profiler import ProfilerActivity, profile
+
     from epivo_tpu_torch.utils import profiling
 
-    t = profiling.StageTimer(fence=True)
-    for name in ("a", "a", "b"):
-        with t.stage(name, torch.ones(3)):
-            sum(range(1000))
-    out = t.time_fn("matmul", lambda: torch.ones(64, 64) @ torch.ones(64, 64))
-    s = t.summary()
-    assert out.shape == (64, 64) and s["a"]["count"] == 2 and s["matmul"]["count"] == 1
-    assert "a" in t.report()
     p = tmp_path / "m.jsonl"
     m = profiling.MetricsLogger(str(p))
     m.log({"frame": 1, "x": torch.tensor(2.5), "arr": np.arange(3)})
@@ -195,9 +189,17 @@ def test_profiling_cases(tmp_path):
     assert [json.loads(line) for line in p.read_text().splitlines()] == [
         {"frame": 1, "x": 2.5, "arr": [0, 1, 2]}]
     profiling.MetricsLogger(None).log({"a": 1})
-    with profiling.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    off = profiling.span("test.case", b=1)
+    assert off is profiling.span("test.other")
+    with off:
+        pass
+    before = profiling.span_totals().get("test.case", (0.0, 0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("test.case", b=1):
+            torch.ones(8).sum()
+    assert any(e.name == "test.case" for e in prof.events())
+    count = profiling.span_totals()["test.case"]
+    assert count[1] == before[1] + 1 and count[0] > before[0]
 
 
 def test_checkpoint_round_trip(tmp_path):
