@@ -3075,7 +3075,7 @@ def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
     from epivo_tpu_torch.frontend import fast, klt
     from epivo_tpu_torch.geometry import camera as cam
     from epivo_tpu_torch.parallel import multihost
-    from epivo_tpu_torch.pipeline import ba, config, runners, scale
+    from epivo_tpu_torch.pipeline import ba, config, runners, scale, stream
     from epivo_tpu_torch.pipeline.config import GlobalBAConfig, VOConfig
     from epivo_tpu_torch.tools import mesh_checks, photoreal_ate
 
@@ -3212,7 +3212,8 @@ def phase_multi(frames, results, f0, f1, cfg, dev) -> tuple[dict, dict]:
     # and klt_level's inputs at that B for the kernel checks below.
     half = SEQ_BATCH // 2
     ctl_pairs = [k for k in pairs[:half] if k not in r0["retried"]]
-    src, tgt = runners._pair_inputs(sub.__getitem__, pairs[:half], dev)
+    _, src, tgt = runners._pair_inputs(stream.TransferRing(dev, 1), sub.__getitem__,
+                                       pairs[:half])
     with sequence_recording(batch=half) as rec:
         packed = runners._extract_step(vo_cfg, False)(src, tgt, ransac.BatchDraw(
             torch.Generator(device=dev).manual_seed(0), tuple(range(half)), SEQ_BATCH))

@@ -19,7 +19,14 @@ Host/device split: frame decode and GT stay on the host; frames go to the
 device in batches, and each batch of pairs is one batched step
 (``vo.vo_step_batched`` or ``vo.vo_step_orb_batched``), whose results come
 back as one packed device-to-host copy. Dispatch runs ``pipeline_depth``
-batches ahead of the fetch (:class:`stream.PipelinedDispatch`). The
+batches ahead of the fetch (:class:`stream.PipelinedDispatch`). A ring of
+``pipeline_depth + 1`` transfer slots (:class:`stream.TransferRing`)
+carries each batch of the KLT passes: its distinct frames are copied once
+into the slot's pinned host buffer and uploaded from there, its packed
+result is copied back into the slot right after the step, on the step's
+stream, and the fetch waits on that copy's event alone, so the batches
+dispatched after it stay queued on the card while the host collects and
+stages the next. The
 stereo scale estimator's depths are one batched call and one copy; its
 estimators, and the post-LM rescale, run in float64 on the host.
 
@@ -42,8 +49,9 @@ stage) run replicated. Only global rank 0 writes checkpoints and metrics.
 At a world size of 1 a mesh run is bit-equal to the run without one.
 A rank's steps, window solve and polish replay CUDA graphs as they do
 without a mesh (``_graphs.py``; the gather of the lanes follows outside
-the step); a hyp split and the polish hold collectives, so they are
-captured on NCCL and run eagerly on gloo.
+the step, at dispatch, in the same order on every rank); a hyp split and
+the polish hold collectives, so they are captured on NCCL and run eagerly
+on gloo.
 """
 
 from __future__ import annotations
@@ -75,7 +83,7 @@ class SequenceResult(NamedTuple):
     cloud_limits: np.ndarray  # [F-1] cumulative counts per frame (lims file)
     per_frame: dict  # diagnostics arrays
     loops: tuple = ()  # applied loop edges (loopclose.Loop), loop closure on
-    stats: dict | None = None  # counts and host wall seconds per stage
+    stats: dict | None = None  # counts (and host wall seconds) per stage
     pair_data: dict | None = None  # run_ba_sequence: the extracted pairs
 
 
@@ -123,19 +131,24 @@ def _gather_lanes(x: torch.Tensor | None, n: int, mesh):
     return mesh_mod.gather_rows(x, mesh, "win")[:n]
 
 
-def _pair_inputs(get, pairs: list, dev, **ids):
-    """(src, tgt [len(pairs), H, W]) on ``dev`` for frame pairs (i, j),
-    each distinct frame ``get(i)`` uploaded once; ``ids`` (a batch's index
-    and first frame) go on the spans ``vo.stack`` and ``vo.upload``."""
+def _pair_inputs(ring: stream.TransferRing, get, pairs: list, **ids):
+    """(slot, src, tgt [len(pairs), H, W] on the ring's device) for frame
+    pairs (i, j): each distinct frame ``get(i)`` copied once into the
+    ring's next slot (span ``vo.stack``) and uploaded from there
+    (``vo.upload``). src and tgt are views of the upload where the pairs
+    are consecutive frames (f, f + 1), else gathered from it. ``ids`` (a
+    batch's index and first frame) go on the spans."""
     frames = sorted({f for pr in pairs for f in pr})
-    pos = {f: k for k, f in enumerate(frames)}
     with profiling.span("vo.stack", **ids):
-        host = np.stack([get(f) for f in frames])
+        slot = ring.put([get(f) for f in frames])
     with profiling.span("vo.upload", **ids):
-        stack = _upload(host, dev)
+        stack = ring.upload(slot)
+        if pairs == [(f, f + 1) for f in frames[:-1]]:
+            return slot, stack[:-1], stack[1:]
+        pos = {f: k for k, f in enumerate(frames)}
         pick = lambda side: stack.index_select(
-            0, to_device([pos[pr[side]] for pr in pairs], torch.int64, dev))
-        return pick(0), pick(1)
+            0, to_device([pos[pr[side]] for pr in pairs], torch.int64, ring.device))
+        return slot, pick(0), pick(1)
 
 
 def _batched_vo(config: VOConfig, collect_cloud: bool = True, hyp_mesh=None):
@@ -186,8 +199,13 @@ def run_vo_sequence(
     at the last snapshot (callers pass the same stream again; the
     generator restarts from ``seed + resumed frames``).
 
-    Each batch's poses and scalars come back in one device-to-host copy;
-    the cloud buffers are fetched at checkpoint boundaries and at the end.
+    Each batch's poses and scalars come back in one device-to-host copy
+    into its transfer slot, fetched on that copy's event; the cloud
+    buffers are fetched at checkpoint boundaries and at the end. The
+    result's ``stats`` counts the ``batches`` and, of their transfers
+    (:class:`stream.TransferRing`), the fetches that waited for the card
+    (``fetch_waited``; near ``batches``, the card sets the pace) and the
+    stagings that waited for a slot's upload (``slot_waited``).
     With ``mesh`` the pairs of each batch are split over its ``win`` axis
     (``batch`` rounds up to a multiple of it); see the module docstring.
     """
@@ -202,6 +220,7 @@ def _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud, check
     dev = _mesh_device(mesh, device)
     batch = _mesh_batch(batch, mesh)
     step_fn = _batched_vo(config, collect_cloud=collect_cloud, hyp_mesh=mesh)
+    ring = stream.TransferRing(dev, pipeline_depth + 1)
     gen = torch.Generator(device=dev).manual_seed(seed)
     mlog = profiling.MetricsLogger(metrics_path if _writes(mesh) else None)
 
@@ -256,9 +275,9 @@ def _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud, check
 
     def on_ready(res, ctx):
         B, b = ctx
+        slot, cloud = res
         with profiling.span("vo.fetch", b=b, frame=fidx):
-            head, cloud = (_gather_lanes(x, B, mesh) for x in res)
-            h = head.cpu().numpy()[:B]
+            h = ring.fetch(slot)
         with profiling.span("vo.collect", b=b, frame=fidx):
             collect(h, cloud, B)
 
@@ -298,9 +317,13 @@ def _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud, check
     pipe = stream.PipelinedDispatch(on_ready, depth=pipeline_depth)
     n_batches, next_frame = 0, fidx  # the next batch's index and first frame
 
-    def dispatch(src, tgt, g, b, frame):
+    def dispatch(slot, src, tgt, g, B, b, frame):
+        """The batch's step, its lanes gathered, and its head's copy into
+        the slot: (slot, cloud on the device or None)."""
         with profiling.span("vo.dispatch", b=b, frame=frame):
-            return step_fn(src, tgt, g)
+            head, cloud = (_gather_lanes(x, B, mesh) for x in step_fn(src, tgt, g))
+            ring.send(slot, head)
+            return slot, cloud
 
     def flush(buf):
         nonlocal n_batches, next_frame
@@ -309,10 +332,10 @@ def _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud, check
             return
         b, frame = n_batches, next_frame
         lanes = _lanes(B, mesh)
-        src, tgt = _pair_inputs(buf.__getitem__, [(q, q + 1) for q in lanes], dev,
-                                b=b, frame=frame)
+        slot, src, tgt = _pair_inputs(ring, buf.__getitem__, [(q, q + 1) for q in lanes],
+                                      b=b, frame=frame)
         pipe.submit(lambda s=src, t=tgt, g=_draw(gen, lanes, B, mesh):
-                    dispatch(s, t, g, b, frame), (B, b))
+                    dispatch(slot, s, t, g, B, b, frame), (B, b))
         n_batches, next_frame = b + 1, frame + B
 
     for f in frames:
@@ -325,10 +348,12 @@ def _run_vo_sequence(frames, config, gt_poses, batch, seed, collect_cloud, check
     _drain_cloud()
 
     with profiling.span("vo.finish"):
-        return _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog)
+        return _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog,
+                       ring.stats)
 
 
-def _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog) -> SequenceResult:
+def _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog,
+            stats: dict) -> SequenceResult:
     """A run's result after its last fetch: scale, trajectory, world cloud
     and metrics."""
     dTs = np.stack(dTs).astype(np.float32) if dTs else np.zeros((0, 4, 4), np.float32)
@@ -374,6 +399,7 @@ def _finish(dTs, clouds, limits, n_inl, n_trk, reverted, gt_poses, mlog) -> Sequ
             "reverted": np.asarray(reverted),
             "scales": scales,
         },
+        stats=stats,
     )
 
 
@@ -462,14 +488,22 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
     m the solver's sample size: 8, or 5 with ``solver="5pt"``) replace the
     generator's draws of the KLT and the ORB pass, for parity runs.
     ``stats`` (a dict) receives the pair, retry and replace counts, the
-    retried pairs, the passes' host wall seconds, and the lanes of each
-    step this rank ran in either pass (``step_lanes``, ``retry_lanes``).
+    retried pairs, the passes' host wall seconds, the lanes of each
+    step this rank ran in either pass (``step_lanes``, ``retry_lanes``),
+    and the KLT pass's transfer waits (``fetch_waited``, ``slot_waited``:
+    :class:`stream.TransferRing`).
+
+    The KLT pass stages each batch's distinct frames (up to 2 ``batch``)
+    in a slot of a ring of ``pipeline_depth + 1`` and fetches each packed
+    result on its own event; the ORB retry pass (uint8 stacks per side, a
+    handful of batches) uploads and fetches directly.
 
     With ``mesh`` each batch (``batch`` rounded up to a multiple of the
     ``win`` axis) is split over ``win``: every rank reads the same stream,
     draws the whole batch's samples (or takes ``ransac_samples``), uploads
     and steps its own lanes, and gathers the packed results before it
-    reads them; the ORB retry pass is split the same way.
+    reads them (the KLT pass right after the step); the ORB retry pass is
+    split the same way.
 
     Returns {(i, j): {p, p_t, mask (top-n_points score-ranked), T,
     p_full, p_t_full, mask_full, n_inl, rev}} with points in normalized
@@ -490,7 +524,8 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
     todo = [pr for pr in pairs if pr not in out]
     if stats is not None:
         stats.update(n_pairs=len(todo), n_retried=0, n_replaced=0,
-                     extract_s=0.0, orb_retry_s=0.0, step_lanes=[], retry_lanes=[])
+                     extract_s=0.0, orb_retry_s=0.0, step_lanes=[], retry_lanes=[],
+                     fetch_waited=0, slot_waited=0)
     if not todo:
         return out
     # Smallest frame index any not-yet-dispatched pair needs (suffix min):
@@ -502,6 +537,7 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
     fs.evict_below(int(sufmin[0]))  # resume: skip already-covered frames
 
     step = _extract_step(vo_cfg, use_orb, mesh)
+    ring = stream.TransferRing(dev, pipeline_depth + 1)
     gen = torch.Generator(device=dev).manual_seed(seed + len(out))
 
     fb_frac = vo_cfg.frontend.orb_fallback_frac if not use_orb else 0.0
@@ -524,9 +560,14 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
             n_inl=int(scal_row[0]), rev=bool(scal_row[1] > 0.5),
         )
 
-    def on_ready(res, chunk):
-        T, p0_all, p1_all, sel_all, inl_all, scal = _unpack_step(
-            _gather_lanes(res, len(chunk), mesh).cpu().numpy())
+    def dispatch(slot, src, tgt, g, m, n):
+        """The batch's step, its lanes gathered, and the copy of its packed
+        result into the slot."""
+        ring.send(slot, _gather_lanes(step(src, tgt, g, m), n, mesh))
+        return slot
+
+    def on_ready(slot, chunk):
+        T, p0_all, p1_all, sel_all, inl_all, scal = _unpack_step(ring.fetch(slot))
         for b, (i, j) in enumerate(chunk):
             out[(i, j)] = e = entry(T[b], p0_all[b], p1_all[b], sel_all[b],
                                     inl_all[b], scal[b])
@@ -553,12 +594,12 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
                 pend_frames[(i, j)] = (fs.get(i), fs.get(j))
         lanes = _lanes(len(chunk), mesh)
         mine = [chunk[q] for q in lanes]
-        src, tgt = _pair_inputs(fs.get, mine, dev)
+        slot, src, tgt = _pair_inputs(ring, fs.get, mine)
         smp = samples_of(ransac_samples, mine)
         if stats is not None:
             stats["step_lanes"].append(src.shape[0])
         pipe.submit(lambda s=src, t=tgt, g=_draw(gen, lanes, len(chunk), mesh), m=smp:
-                    step(s, t, g, m), chunk)
+                    dispatch(slot, s, t, g, m, len(chunk)), chunk)
         # Keep only what the remaining pairs still need (sufmin is +inf
         # after the last batch, which evicts everything).
         fs.evict_below(int(min(sufmin[min(c0 + batch, len(todo))], 2**62)))
@@ -601,7 +642,9 @@ def _extract_pairs(frames, pairs, vo_cfg: VOConfig, seed: int,
     if stats is not None:
         stats.update(n_retried=len(retry_frames), n_replaced=n_swap,
                      retried=sorted(retry_frames),
-                     extract_s=t1 - t0, orb_retry_s=time.perf_counter() - t1)
+                     extract_s=t1 - t0, orb_retry_s=time.perf_counter() - t1,
+                     fetch_waited=ring.stats["fetch_waited"],
+                     slot_waited=ring.stats["slot_waited"])
     return out
 
 

@@ -219,7 +219,8 @@ def card_check(dev: torch.device, frames: list, pairs: list, vo_cfg, extract: di
     # first batch (replays; their launches are not counted).
     batch = extract["batch"]
     lanes = runners._lanes(batch, win)
-    src, tgt = runners._pair_inputs(frames.__getitem__, [pairs[q] for q in lanes], dev)
+    _, src, tgt = runners._pair_inputs(stream.TransferRing(dev, 1), frames.__getitem__,
+                                       [pairs[q] for q in lanes])
     step = runners._extract_step(vo_cfg, False)
     gen = torch.Generator(device=dev).manual_seed(0)
     step(src, tgt, runners._draw(gen, lanes, batch, win))
