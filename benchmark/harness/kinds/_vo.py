@@ -15,7 +15,7 @@ LANES = 8  # lanes per block of the reference's step
 
 def render(cfg: dict, traffic: dict, seed: int) -> np.ndarray:
     return frames_mod.render(compare.derive(seed, "frames"), traffic["frames_rendered"],
-                             cfg["camera"])
+                             cfg["camera"], motion=cfg.get("motion"))
 
 
 def ref_steps(frames_dev: torch.Tensor, pairs: list, uniforms: torch.Tensor,

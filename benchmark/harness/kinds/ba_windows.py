@@ -20,6 +20,12 @@ from benchmark.yardstick import ba_windows as gen_mod
 
 KEYS = ("T0s", "p", "p_t", "wreps", "pmask")
 
+# The traffic's overrides for the CPU rehearsal and for the card's control
+# test, and the port function that the rehearsal's faults wrap.
+REHEARSAL = dict(windows_per_call=16, window_sets=2, warmup_calls=1)
+CONTROL = dict(windows_per_call=512, check_calls=1)
+FAULT_TARGET = "ba_windows"
+
 
 class Driver:
     def __init__(self, cell, seed: int, device: torch.device):

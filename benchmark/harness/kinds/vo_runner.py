@@ -20,6 +20,13 @@ from benchmark.harness.kinds import _vo
 from benchmark.reference import vo as ref_vo
 from benchmark.yardstick import frames as frames_mod
 
+# The traffic's overrides for the CPU rehearsal (with the tiny camera of
+# ``benchmark/tests/_tiny.py``) and for the card's control test, and the
+# port function that the rehearsal's faults wrap.
+REHEARSAL = dict(stream_frames=9, batch=4, check_calls=1, warmup_calls=1)
+CONTROL = dict(stream_frames=65, warmup_calls=1, check_calls=1)
+FAULT_TARGET = "vo_step_batched"
+
 
 class Driver:
     def __init__(self, cell, seed: int, device: torch.device):

@@ -1,8 +1,9 @@
 """On the card: the control (the reference in the nearest lower precision,
 TF32 matmuls and einsums, in the program's place) comes out not correct
 against the cell's limits, and the program comes out correct, at sizes a
-test run holds: the VO cell at the camera's full size with a shorter
-stream, the BA cell at 512 windows a call.
+test run holds, the traffic's overrides read from the kind's ``CONTROL``:
+the VO cell at the camera's full size with a shorter stream, the BA cell
+at 512 windows a call.
 
     python -m pytest benchmark/tests/test_bench_control.py -q
 """
@@ -13,10 +14,7 @@ import pytest
 import torch
 
 from benchmark.harness import cell as cell_mod, compare, spec as spec_mod
-from benchmark.tests._tiny import all_cells
-
-SIZES = {"vo_runner": dict(stream_frames=65, warmup_calls=1, check_calls=1),
-         "ba_windows": dict(windows_per_call=512, check_calls=1)}
+from benchmark.tests._tiny import all_cells, kind_module
 
 
 @pytest.mark.cuda
@@ -25,7 +23,7 @@ def test_control_fails_and_program_holds(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     c = spec_mod.cell(name)
-    tr = dict(copy.deepcopy(c.traffic), **SIZES[c.traffic["kind"]])
+    tr = dict(copy.deepcopy(c.traffic), **kind_module(c.traffic["kind"]).CONTROL)
     cell = spec_mod.Cell(name=name, chips=1, config=c.config, traffic=tr,
                          end_to_end=c.end_to_end, per_layer=c.per_layer, limits=c.limits)
     drv = cell_mod.driver(cell, 2**32 + 3, torch.device("cuda", 0))

@@ -4,7 +4,9 @@ window, comparison with the reference) runs on the CPU, comes out
 correct, and comes out not correct with the timed path broken
 underneath: the answers altered where they are produced (every pose a
 step or solve returns turned by 0.01 rad), half of a batch left out (its
-lanes repeat the others'), a solve that returns its state unchanged."""
+lanes repeat the others'), a solve that returns its state unchanged. The
+faults run on every cell whose kind's ``FAULT_TARGET`` names the port
+function they wrap."""
 
 import json
 import subprocess
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from benchmark.harness import cell as cell_mod, spec as spec_mod
-from benchmark.tests._tiny import all_cells, tiny_cell
+from benchmark.tests._tiny import all_cells, cells_faulted_in, tiny_cell
 
 CELLS = all_cells()
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
@@ -75,14 +77,16 @@ def _faulty_vo_step(monkeypatch, fault):
 
 
 @pytest.mark.parametrize("fault", ["altered", "half_batch"])
-def test_offline_faults_fail(monkeypatch, fault):
+@pytest.mark.parametrize("name", cells_faulted_in("vo_step_batched"))
+def test_offline_faults_fail(monkeypatch, name, fault):
     _faulty_vo_step(monkeypatch, fault)
-    res, _ = _run("kitti00_vo.offline_b32")
+    res, _ = _run(name)
     assert not res["correct"], res["checks"]
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
-def test_ba_faults_fail(monkeypatch, fault):
+@pytest.mark.parametrize("name", cells_faulted_in("ba_windows"))
+def test_ba_faults_fail(monkeypatch, name, fault):
     from epivo_tpu_torch.pipeline import ba
 
     real = ba.ba_windows
@@ -99,5 +103,5 @@ def test_ba_faults_fail(monkeypatch, fault):
         return out._replace(T_opt=T)
 
     monkeypatch.setattr(ba, "ba_windows", broken)
-    res, _ = _run("kitti00_ba.windows_seq00")
+    res, _ = _run(name)
     assert not res["correct"], res["checks"]
