@@ -141,6 +141,12 @@ Phases, each reported on its own line:
    vo_step_batched call inside measure_batched (fast_cand 1, klt_level 4).
    The bench itself, with the baselines pinned to one core, runs in its
    own call: python3 -m epivo_tpu_torch.tools.bench.
+16. undistort: vo_step_batched on 32 raw 752x480 pairs at
+   tools/run_euroc.py --mode vo's configuration (EuRoC cam0's lens set, so
+   the step undistorts its frames first), graph-checked with undistort 1 /
+   fast_cand 1 / klt_level 4 launches per replay and no host sync; the
+   undistortion kernel on that call's 64 frames against its plain version
+   on the CPU, bit for bit, with device time and bound.
 
 The step, ORB step, BA and global-polish calls of every phase run graphed
 (graph=None on the card), so phases 9-15 time and count replays from a
@@ -202,6 +208,10 @@ GT_R_TOL, GT_DIR_TOL = 0.01, 0.1
 # behind phases 6 and 7's throughput (the best of them, after a warm one).
 N_PAIRS = 8
 BATCHED_REPS = 2
+# The EuRoC raw-frames step (phase 16): cam0's frame and the benchmark's
+# offline batch.
+EUROC_H, EUROC_W = 480, 752
+EUROC_BATCH = 32
 # Windowed BA, card against the port's CPU path, at the tolerances of the
 # CPU tests (tests/test_torch_ba.py): rotations, translation directions,
 # accepted steps, and the final residual norm (rtol, atol); the share of
@@ -397,20 +407,21 @@ def _check(cond: bool, what: str) -> None:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from epivo_tpu_torch.frontend import fast, klt, orb
+    from epivo_tpu_torch.frontend import fast, klt, orb, undistort
 
     fast.KERNEL_LAUNCHES = fast.CAND_LAUNCHES = 0
     klt.LEVEL_LAUNCHES = klt.EXTRACT_LAUNCHES = klt.LK_LAUNCHES = 0
-    orb.DESCRIBE_LAUNCHES = 0
+    orb.DESCRIBE_LAUNCHES = undistort.LAUNCHES = 0
 
 
 def launches_now() -> dict:
     """Every kernel's launch count since the last reset."""
-    from epivo_tpu_torch.frontend import fast, klt, orb
+    from epivo_tpu_torch.frontend import fast, klt, orb, undistort
 
     return {"fast": fast.KERNEL_LAUNCHES, "fast_cand": fast.CAND_LAUNCHES,
             "klt_level": klt.LEVEL_LAUNCHES, "extract": klt.EXTRACT_LAUNCHES,
-            "lk": klt.LK_LAUNCHES, "orb_describe": orb.DESCRIBE_LAUNCHES}
+            "lk": klt.LK_LAUNCHES, "orb_describe": orb.DESCRIBE_LAUNCHES,
+            "undistort": undistort.LAUNCHES}
 
 
 def host_ms(fn) -> float:
@@ -848,7 +859,8 @@ def timed_in_turns(fns: dict, turns: int = 2, **kw) -> dict:
 # The kernel each launch counter counts, by its name in a profile.
 KERNEL_NAMES = {"fast": "fast_score_kernel", "fast_cand": "fast_candidates_kernel",
                 "klt_level": "track_level_kernel", "extract": "extract_windows_kernel",
-                "lk": "lk_iterate_kernel", "orb_describe": "orb_describe_kernel"}
+                "lk": "lk_iterate_kernel", "orb_describe": "orb_describe_kernel",
+                "undistort": "undistort_remap_kernel"}
 NO_LAUNCHES = {k: 0 for k in KERNEL_NAMES}
 GRAPH_TURNS = 2  # host-clock calls of each path per turn (eager, graph, graph, eager)
 PROFILE_TRIES = 3  # profiles of one replay each, for the profiler's dropped records
@@ -1194,7 +1206,7 @@ def phase_slice(f0, f1, gt, cfg) -> dict:
         return out
 
     per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
-                "lk": 0, "orb_describe": 0}
+                "lk": 0, "orb_describe": 0, "undistort": 0}
     # The step's CUDA graph (captured by its second call) against eager.
     graphs = {"generator": graph_check(
         f"vo_step B=1 {H}x{W}, generator", lambda graph: vo.vo_step(
@@ -1330,7 +1342,7 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
     batched = lambda **kw: vo.vo_step_batched(img0, img1, gen(), cfg, **kw)
     per_call = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0,
-                "lk": 0, "orb_describe": 0}
+                "lk": 0, "orb_describe": 0, "undistort": 0}
     graphs = {"generator": graph_check(f"vo_step_batched B={n_pairs}, generator",
                                        lambda graph: batched(graph=graph), per_call)}
 
@@ -1401,6 +1413,66 @@ def phase_batched(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
         launches=launches, pairs_s=pairs_s, ms_per_call=ms_b, rep_spread=spread,
         fast_cand=cand_report(img0, FAST_T, f"batched: B={n_pairs}"), klt_level=level,
         graph=graphs)
+
+
+def phase_undistort(dev) -> tuple[dict, dict]:
+    """The undistortion kernel on the main path: vo_step_batched on
+    EUROC_BATCH raw 752x480 pairs at run_euroc --mode vo's configuration
+    (the lens set; lane b's source frame + b * 1e-5, as phase 6), through
+    graph_check (launches per replay fast_cand 1 / klt_level 4 / undistort
+    1, from the accounting and the profiler), a replay with no host sync;
+    then the kernel on that call's 2 * EUROC_BATCH frames against
+    undistort_plain on the CPU, bit for bit, with the wrapper's time, the
+    kernel's device time, the bound of those frames (each read and written
+    once) and the plain version's time on the card. Returns (the phase's
+    numbers, the kernel's report)."""
+    from epivo_tpu_torch.datasets import photoreal
+    from epivo_tpu_torch.frontend import undistort
+    from epivo_tpu_torch.pipeline import vo
+    from epivo_tpu_torch.tools import run_euroc
+
+    cfg = run_euroc.vo_config((EUROC_H, EUROC_W))
+    cam, lens = cfg.camera, cfg.distortion
+    frames, _, _ = photoreal.corridor_sequence(2, H=EUROC_H, W=EUROC_W,
+                                               K=cam.K(torch.float64).numpy(), speed=0.05,
+                                               seed=SEED)
+    f0, f1 = (torch.from_numpy(np.asarray(f, np.float32)).to(dev) for f in frames)
+    eps = torch.arange(EUROC_BATCH, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
+    img0 = (f0[None] + eps).contiguous()
+    img1 = f1[None].expand(EUROC_BATCH, -1, -1).contiguous()
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    per_call = dict(NO_LAUNCHES, fast_cand=1, klt_level=cfg.frontend.klt_levels, undistort=1)
+    graph = graph_check(f"vo_step_batched on raw frames B={EUROC_BATCH} {EUROC_H}x{EUROC_W}",
+                        lambda graph: vo.vo_step_batched(img0, img1, gen(), cfg, graph=graph),
+                        per_call, turns=1)
+    res = no_sync(lambda: vo.vo_step_batched(img0, img1, gen(), cfg))
+    _check(bool(torch.isfinite(res.T).all()), "undistort: raw-frames step poses not finite")
+
+    # The kernel on the frames that call gives it, one launch.
+    n = 2 * EUROC_BATCH
+    got = undistort.undistort((img0, img1), cam, lens)
+    want = undistort.undistort_plain(torch.cat([img0, img1]).cpu(), cam, lens)
+    _check(bits_equal(got.cpu(), want), f"undistort kernel differs from plain (n={n}, "
+           f"{EUROC_H}x{EUROC_W})")
+    dev_ms, how = device_ms(lambda: undistort.undistort_kernel(img0, img1, cam, lens),
+                            KERNEL_NAMES["undistort"])
+    nbytes = n * EUROC_H * EUROC_W * (4 + 4)
+    b_ms, b_by = bound(nbytes, 0)
+    b_distinct, _ = bound((EUROC_BATCH + 1) * EUROC_H * EUROC_W * (4 + 4), 0)
+    tt = timed_in_turns({"kernel": lambda: undistort.undistort((img0, img1), cam, lens),
+                         "plain": lambda: undistort.undistort((img0, img1), cam, lens,
+                                                             use_kernel=False)},
+                        turns=1, reps=5, warmup=1)
+    print(f"undistort: vo_step_batched B={EUROC_BATCH} on raw {EUROC_H}x{EUROC_W} frames at "
+          f"run_euroc's configuration: launches per replay {graph['launches']}, no host sync "
+          f"in a replay, n_inliers {[int(x) for x in res.n_inliers[:4]]}...; kernel undistort "
+          f"n={n} bit-equal to undistort_plain on the CPU, wrapper {tt['kernel']:.4f} ms, "
+          f"device {dev_ms:.4f} ms ({how}), bound {b_ms:.4f} ms ({b_by}; {nbytes} bytes; "
+          f"{b_distinct:.4f} ms for the call's {EUROC_BATCH + 1} distinct frames), plain "
+          f"{tt['plain']:.4f} ms")
+    kernel = dict(max_abs_err=0.0, ms=tt["kernel"], device_ms=dev_ms, plain_ms=tt["plain"],
+                  bound_ms=b_ms, bound_by=b_by, bound_distinct_ms=b_distinct, library_ms=None)
+    return dict(launches=graph["launches"], graph=graph), kernel
 
 
 def cand_report(imgs, thr: float, what: str) -> dict:
@@ -1677,9 +1749,9 @@ def phase_orb(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     T_gt = np.linalg.inv(np.linalg.inv(gt[0]) @ gt[1])
     out = {}
     per_step = {"fast": 0, "fast_cand": 1, "klt_level": 0, "extract": 0, "lk": 0,
-                "orb_describe": 1}
+                "orb_describe": 1, "undistort": 0}
     per_pyr = {"fast": 2, "fast_cand": 6, "klt_level": 0, "extract": 0, "lk": 0,
-               "orb_describe": 8}
+               "orb_describe": 8, "undistort": 0}
     cfg_p = orb_config(cfg, pyramid=True)
     eps = torch.arange(n_pairs, dtype=f0.dtype, device=dev)[:, None, None] * 1e-5
     img0 = (f0[None] + eps).contiguous()
@@ -2717,7 +2789,7 @@ def phase_five_point(f0, f1, gt, cfg, n_pairs: int = N_PAIRS) -> dict:
     mem1 = torch.cuda.max_memory_allocated() / 1e9
     launches = launches_now()
     per_step = {"fast": 0, "fast_cand": 1, "klt_level": fc.klt_levels, "extract": 0, "lk": 0,
-                "orb_describe": 0}
+                "orb_describe": 0, "undistort": 0}
     _check(launches == {k: v * n_steps for k, v in per_step.items()},
            f"5-point launch counts {launches} != {per_step} per step x {n_steps}")
     for r in results:
@@ -3331,6 +3403,9 @@ KERNELS = {
            "epivo_tpu/frontend/pallas_klt.py:75"),
     "orb_describe": ("epivo_tpu_torch/csrc/orb_describe.cu",
                      "epivo_tpu/frontend/pallas_klt.py:211"),
+    "undistort": ("epivo_tpu_torch/csrc/undistort.cu",
+                  "none: epivo_tpu/datasets/euroc.py:70; "
+                  "epivo_tpu/datasets/euroc.py:104, on the host"),
 }
 
 
@@ -3508,7 +3583,7 @@ def phase_entry_points(dev, runtime_build, frames, gt, stereo) -> tuple[dict, di
         again = fn(*args)
         torch.cuda.synchronize()
         _check(la == {"fast": 0, "fast_cand": 1, "klt_level": 4, "extract": 0, "lk": 0,
-                      "orb_describe": 0},
+                      "orb_describe": 0, "undistort": 0},
                f"entry(): launches {la}")
         _check(all(bool(torch.isfinite(f.float()).all()) for f in out),
                "entry(): non-finite outputs")
@@ -3532,7 +3607,7 @@ def phase_entry_points(dev, runtime_build, frames, gt, stereo) -> tuple[dict, di
         # One fast_cand and one klt_level a level per SEQ_BATCH-pair call.
         calls = -(-res.stats["n_pairs"] // SEQ_BATCH)
         _check(klt_pass == {"fast": 0, "fast_cand": calls, "klt_level": 4 * calls,
-                            "extract": 0, "lk": 0, "orb_describe": 0},
+                            "extract": 0, "lk": 0, "orb_describe": 0, "undistort": 0},
                f"run_kitti --mode ba: KLT pass launches {klt_pass} in {calls} calls")
         cli_artifacts(out_ba, res, "ba")
         ba_cfg = BAConfig(camera=kitti.KittiSequence(mono, "00").intrinsics(),
@@ -3644,7 +3719,7 @@ def phase_bench(f0, f1, cfg, smi: str) -> tuple[dict, dict]:
     calls = (2 + q["n_reps"]) * q["n_batch_iters"]  # the two warm runs' too
     launches = launches_now()
     per_call = {"fast": 0, "fast_cand": 1, "klt_level": cfg.frontend.klt_levels,
-                "extract": 0, "lk": 0, "orb_describe": 0}
+                "extract": 0, "lk": 0, "orb_describe": 0, "undistort": 0}
     _check(launches == {k: v * calls for k, v in per_call.items()},
            f"bench: launches {launches} over {calls} vo_step_batched calls in "
            f"measure_batched, not {per_call} per call")
@@ -3739,6 +3814,7 @@ def main() -> int:
                                        runtime_build, seq_frames, seq_gt, stereo_frames_kept)
     del seq_frames, stereo_frames_kept
     bench_line, launches_bench = timed("bench", phase_bench, f0, f1, cfg, smi)
+    undist, report["undistort"] = timed("undistort", phase_undistort, dev)
     from epivo_tpu_torch import _graphs
 
     print("graph cache (least recently used first): " + "; ".join(
@@ -3756,7 +3832,7 @@ def main() -> int:
                       "orb": orb,
                       "sequence": sequence, "stereo": stereo, "loop": loop,
                       "five_point": five, "global": glob, "multi": multi,
-                      "entry_points": entry_points, "bench": bench_line,
+                      "entry_points": entry_points, "bench": bench_line, "undistort": undist,
                       "phase_s": phase_s}))
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
@@ -3767,13 +3843,15 @@ def main() -> int:
          "launches_loop_stage": loop["launches_stage"][k],
          "launches_per_loop_call": loop["launches_per_call"][k],
          "launches_per_five_point_step": five["launches_per_step"][k],
-         "launches_multi_rank": multi_kernels["launches"][k],
-         "launches_multi_rank_run": multi_kernels["run"][k],
-         "launches_multi_rank_retry": multi_kernels["retry"][k],
+         # The rank programs (tools/mesh_checks.py) count no undistortion.
+         "launches_multi_rank": multi_kernels["launches"].get(k),
+         "launches_multi_rank_run": multi_kernels["run"].get(k),
+         "launches_multi_rank_retry": multi_kernels["retry"].get(k),
          "launches_cli": launches_cli[k], "launches_bench": launches_bench[k],
          "launches_per_replay": batched["graph"]["generator"]["launches"][k],
          "launches_per_orb_replay": orb["graph"]["B8"]["launches"][k],
          "launches_per_pyramid_orb_replay": orb["graph"]["pyramid"]["launches"][k],
+         "launches_per_raw_replay": undist["launches"][k],
          **report[k]}
         for k, (src, rep) in KERNELS.items()
     ]

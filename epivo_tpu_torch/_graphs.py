@@ -43,7 +43,8 @@ call opens host spans while a ``torch.profiler`` runs
 ``graph.fill`` (the ``Fill`` draws and input copies), ``graph.replay``
 and ``graph.clone`` (the output clones) for a replay.
 
-The kernels' launch counters (``frontend/fast.py``, ``frontend/klt.py``)
+The kernels' launch counters (``frontend/fast.py``, ``frontend/klt.py``,
+``frontend/orb.py``, ``frontend/undistort.py``)
 and the mesh's collectives counter (``parallel/mesh.py``'s
 ``COLLECTIVES``) are Python numbers that a wrapper bumps when its Python
 runs, which a replay never does. So the counts a capture makes are taken
@@ -100,6 +101,7 @@ COUNTERS = (
     ("epivo_tpu_torch.frontend.klt", "LK_LAUNCHES"),
     ("epivo_tpu_torch.frontend.klt", "LEVEL_LAUNCHES"),
     ("epivo_tpu_torch.frontend.orb", "DESCRIBE_LAUNCHES"),
+    ("epivo_tpu_torch.frontend.undistort", "LAUNCHES"),
 )
 
 

@@ -33,6 +33,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures: every launching entry point returns a cudaError_t as int.
 _SIGNATURES = {
     # img, out, B, H, W, threshold, nms, stream
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "epivo_track_level_smem": (_I, _I),
     # img, xy, pattern, signs, packed, angle, B, H, W, K, hi, stream
     "epivo_orb_describe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # src0, src1, dst, n0, n1, H, W, fx, fy, cx, cy, k1, k2, p1, p2, stream
+    "epivo_undistort": (_P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _D, _D, _D, _D, _P),
     # stage (utils/profiling.STAGES' index), stream
     "epivo_stage_mark": (_I, _P),
 }

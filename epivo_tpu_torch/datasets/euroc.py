@@ -9,10 +9,12 @@ grids, and GT association by nearest timestamp (the reference uses a
 hand-tuned start-index heuristic and fixed tolerance at `euroc.cpp:229-252`;
 we do exact nearest-neighbor association on timestamps, strictly stronger).
 
-The undistort/rectify map is computed once on host (numpy) and applied per
-frame; map application is a dense separable-friendly warp done on host
-alongside PNG decode (device code sees clean pinhole images, keeping the
-device pipeline shape-static and gather-free).
+The undistort/rectify maps are computed on the host (numpy) and applied
+per frame on the host for the stereo path (rectification) and the
+keyframes of the loop stage. The monocular VO path hands the step raw
+frames instead: the step undistorts them on the device with the same
+arithmetic (``frontend/undistort.py``, ``VOConfig.distortion``), and
+:func:`undistort_map` and :func:`remap` are its oracle.
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ from epivo_tpu_torch._device import constant
 
 @dataclasses.dataclass(frozen=True)
 class Pinhole:
-    """Pinhole intrinsics. Distortion handled separately."""
+    """Pinhole intrinsics. A lens's distortion is a :class:`Distortion`
+    beside it (``VOConfig.distortion``)."""
 
     fx: float
     fy: float
@@ -46,6 +47,19 @@ class Pinhole:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class Distortion:
+    """Radial-tangential (plumb bob) lens distortion of a :class:`Pinhole`:
+    a normalized point (x, y) at r2 = x^2 + y^2 is seen at
+    x (1 + k1 r2 + k2 r2^2) + 2 p1 x y + p2 (r2 + 2 x^2), and likewise in
+    y (``datasets/euroc.py::undistort_map``)."""
+
+    k1: float
+    k2: float
+    p1: float
+    p2: float
+
+
 # KITTI odometry grayscale intrinsics (seq 00-02).
 KITTI_00 = Pinhole(fx=718.8560, fy=718.8560, cx=607.1928, cy=185.2157,
                    width=1241, height=376)
@@ -53,6 +67,9 @@ KITTI_00 = Pinhole(fx=718.8560, fy=718.8560, cx=607.1928, cy=185.2157,
 # EuRoC MAV cam0 pinhole part.
 EUROC_CAM0 = Pinhole(fx=458.654, fy=457.296, cx=367.215, cy=248.375,
                      width=752, height=480)
+# ... and its lens (``datasets/euroc.py``'s ``EUROC_CAM0_DIST``).
+EUROC_CAM0_DIST = Distortion(k1=-0.28340811, k2=0.07395907, p1=0.00019359,
+                             p2=1.76187114e-05)
 
 
 def normalize(pix: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:

@@ -154,12 +154,15 @@ class LoopConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VOConfig:
-    """Two-view VO pipeline."""
+    """Two-view VO pipeline. With ``distortion``, the step takes raw frames
+    of ``camera``'s lens and undistorts them itself
+    (``frontend/undistort.py``); ``None``: the frames are pinhole."""
 
     camera: cam.Pinhole = cam.KITTI_00
     frontend: FrontendConfig = FrontendConfig()
     ransac: RansacConfig = RansacConfig()
     lm: LMConfig = LMConfig()
+    distortion: cam.Distortion | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -141,9 +141,12 @@ class KeyframeStore:
         self.budget = max(4, int(budget))
         self.frames: dict[int, np.ndarray] = {}
 
+    def wants(self, idx: int) -> bool:
+        """Whether :meth:`offer` keeps frame ``idx`` at the current stride."""
+        return idx % self.stride <= 1
+
     def offer(self, idx: int, frame: np.ndarray) -> None:
-        r = idx % self.stride
-        if r > 1:
+        if not self.wants(idx):
             return
         self.frames[idx] = keyframe_half(frame)
         if len(self.frames) > self.budget:

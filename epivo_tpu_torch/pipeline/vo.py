@@ -12,11 +12,16 @@ shapes and no host sync (``chip_smoke.py`` runs the batched step under
 ``torch.cuda.set_sync_debug_mode("error")``). The single step is the
 batched step of one pair, so there is one code path.
 
-A step that runs the hand-written kernels launches four stage marks on
+With ``config.distortion`` set the step takes raw frames and undistorts
+both frames of every pair first, in one call (``frontend/undistort.py``;
+one kernel launch on CUDA images), inside the captured graph.
+
+A step that runs the hand-written kernels launches its stage marks on
 its stream while it is captured or profiled (``utils/profiling.py::mark``):
-``frontend`` before detection and tracking or matching, ``estimate``
-before the RANSAC samples, ``refine`` before the top-N selection and the
-LM, ``end`` after triangulation. The plain route carries no marks.
+``undistort`` before the undistortion (raw frames only), ``frontend``
+before detection and tracking or matching, ``estimate`` before the RANSAC
+samples, ``refine`` before the top-N selection and the LM, ``end`` after
+triangulation. The plain route carries no marks.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 
 from epivo_tpu_torch import _graphs, ransac as ransac_mod
 from epivo_tpu_torch._device import constant
-from epivo_tpu_torch.frontend import fast, klt, match as match_mod, orb
+from epivo_tpu_torch.frontend import fast, klt, match as match_mod, orb, undistort
 from epivo_tpu_torch.geometry import camera as cam, epipolar, essential, se3
 from epivo_tpu_torch.optim import lm
 from epivo_tpu_torch.parallel import mesh as mesh_mod
@@ -152,6 +157,17 @@ def _two_view_tail(p0: torch.Tensor, p1: torch.Tensor, status: torch.Tensor,
     )
 
 
+def _undistorted(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
+                 use_kernel: bool | None):
+    """The pairs' frames [B, H, W] undistorted through ``config.distortion``
+    in one call, behind the ``undistort`` mark; as given without one."""
+    if config.distortion is None:
+        return img0, img1
+    profiling.mark("undistort", img0, use_kernel)
+    both = undistort.undistort((img0, img1), config.camera, config.distortion, use_kernel)
+    return both[:img0.shape[0]], both[img0.shape[0]:]
+
+
 def _klt_matches(img0: torch.Tensor, img1: torch.Tensor, config: VOConfig,
                  use_kernel: bool | None):
     """FAST -> KLT of B pairs: (p0, p1 [B, K, 3] normalized, status [B, K],
@@ -189,6 +205,7 @@ def _klt_graphed(static, img0, img1, draw):
     K] of :func:`ransac.draw_uniforms` (``drawn``) or the samples [B,
     n_hyp, m]."""
     config, use_kernel, drawn, hyp = static
+    img0, img1 = _undistorted(img0, img1, config, use_kernel)
     profiling.mark("frontend", img0, use_kernel)
     m = _klt_matches(img0, img1, config, use_kernel)
     profiling.mark("estimate", img0, use_kernel)
@@ -200,6 +217,7 @@ def _orb_graphed(static, img0, img1, draw):
     """The captured ORB step, with the 8-match gate; arguments as in
     :func:`_klt_graphed`."""
     config, use_kernel, drawn, hyp = static
+    img0, img1 = _undistorted(img0, img1, config, use_kernel)
     profiling.mark("frontend", img0, use_kernel)
     m = _orb_matches(img0, img1, config, use_kernel)
     profiling.mark("estimate", img0, use_kernel)
@@ -251,7 +269,8 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
                     ransac_samples: torch.Tensor | None = None,
                     use_kernel: bool | None = None, hyp_mesh=None,
                     graph: bool | None = None) -> VOStepResult:
-    """B two-view VO steps at once. img0/img1: [B, H, W] float32 grayscale.
+    """B two-view VO steps at once. img0/img1: [B, H, W] float32 grayscale,
+    raw frames of the camera's lens where ``config.distortion`` is set.
 
     The reference's ``jax.vmap(vo_step)`` with the pair axis written out:
     one FAST candidate launch and one KLT level launch per pyramid level
@@ -288,6 +307,7 @@ def vo_step_batched(img0: torch.Tensor, img1: torch.Tensor,
         return _run_graphed(_klt_graphed, img0, img1, generator, config, ransac_samples,
                             use_kernel, hyp_mesh,
                             fast.n_keypoints(H, W, config.frontend.max_keypoints))
+    img0, img1 = _undistorted(img0, img1, config, use_kernel)
     profiling.mark("frontend", img0, use_kernel)
     m = _klt_matches(img0, img1, config, use_kernel)
     profiling.mark("estimate", img0, use_kernel)
@@ -364,6 +384,7 @@ def vo_step_orb_batched(img0: torch.Tensor, img1: torch.Tensor,
         H, W = img0.shape[-2:]
         return _run_graphed(_orb_graphed, img0, img1, generator, config, ransac_samples,
                             use_kernel, hyp_mesh, orb.n_keypoints(H, W, config.frontend))
+    img0, img1 = _undistorted(img0, img1, config, use_kernel)
     profiling.mark("frontend", img0, use_kernel)
     m = _orb_matches(img0, img1, config, use_kernel)
     profiling.mark("estimate", img0, use_kernel)

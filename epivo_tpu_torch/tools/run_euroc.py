@@ -1,11 +1,13 @@
 """Run VO / stereo BA on a EuRoC MAV sequence (the port's counterpart of
 ``scripts/run_euroc.py``, with its flags, artifacts and summary keys).
 
-- ``--mode vo`` (default): the undistorted cam0 stream -> two-view VO
-  with the timestamp-associated ground truth's step lengths -> trajectory,
-  ATE and artifacts; ``--loop-close`` keeps keyframes off the stream and
-  runs the loop stage (keyframe retrieval, ORB verification, Sim(3)
-  spreading) on the finished trajectory.
+- ``--mode vo`` (default): cam0's raw frames -> two-view VO, which
+  undistorts them on the device inside its step (``VOConfig.distortion``,
+  the calibration of ``datasets/euroc.py``), with the
+  timestamp-associated ground truth's step lengths -> trajectory, ATE and
+  artifacts; ``--loop-close`` keeps keyframes off the stream (undistorted
+  on the host) and runs the loop stage (keyframe retrieval, ORB
+  verification, Sim(3) spreading) on the finished trajectory.
 - ``--mode stereo``: fully rectified cam0/cam1 pairs (Bouguet
   split-rotation rectification) -> windowed stereo BA, the calibrated
   baseline giving the metric scale (ground truth for evaluation only),
@@ -53,15 +55,31 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def vo_config(shape):
+    """The ``--mode vo`` step's configuration for raw cam0 frames of
+    ``shape`` (H, W): ``datasets/euroc.py``'s calibration as it stands at
+    call time, the lens as ``distortion``."""
+    from epivo_tpu_torch.datasets import euroc
+    from epivo_tpu_torch.geometry.camera import Distortion, Pinhole
+    from epivo_tpu_torch.pipeline.config import (FrontendConfig, LMConfig, RansacConfig,
+                                                 VOConfig)
+
+    H, W = shape
+    return VOConfig(
+        camera=Pinhole.from_K(euroc.EUROC_CAM0_K, width=W, height=H),
+        frontend=FrontendConfig(fast_threshold=20.0, max_keypoints=1024),
+        ransac=RansacConfig(n_hyp=512, threshold_px=0.3),
+        lm=LMConfig(n_points=48, revert_r_norm=1e-4),
+        distortion=Distortion(*(float(c) for c in euroc.EUROC_CAM0_DIST[:4])),
+    )
+
+
 def main(argv=None):
     """Run the CLI; returns the summary. Exits with status 2 on a missing
     sequence or too few stereo pairs."""
     from epivo_tpu_torch._device import runner_device
     from epivo_tpu_torch.datasets import euroc
-    from epivo_tpu_torch.geometry.camera import EUROC_CAM0
     from epivo_tpu_torch.pipeline import runners
-    from epivo_tpu_torch.pipeline.config import (FrontendConfig, LMConfig, RansacConfig,
-                                                 VOConfig)
     from epivo_tpu_torch.viz import export
 
     args = parser().parse_args(argv)
@@ -74,9 +92,9 @@ def main(argv=None):
     dev = runner_device(args.device)
 
     stop = args.start + args.frames if args.frames else None
-    stamped = list(seq.undistorted_frames(args.start, stop))
+    stamped = seq.image_list()[args.start:stop]
     ts = np.array([t for t, _ in stamped], np.int64)
-    frames = [f for _, f in stamped]
+    frames = [seq.load_image(fn) for _, fn in stamped]
 
     gt = None
     try:
@@ -92,12 +110,7 @@ def main(argv=None):
     except OSError:
         print("no GT found; monocular scale will be unit-norm")
 
-    cfg = VOConfig(
-        camera=EUROC_CAM0,
-        frontend=FrontendConfig(fast_threshold=20.0, max_keypoints=1024),
-        ransac=RansacConfig(n_hyp=512, threshold_px=0.3),
-        lm=LMConfig(n_points=48, revert_r_norm=1e-4),
-    )
+    cfg = vo_config(frames[0].shape)
     kf_store = None
     if args.loop_close:
         from epivo_tpu_torch.pipeline import loopclose
@@ -105,8 +118,11 @@ def main(argv=None):
 
         loop_cfg = LoopConfig(enabled=True)
         kf_store = loopclose.KeyframeStore(loop_cfg.keyframe_stride, loop_cfg.keyframe_budget)
+        maps = euroc.undistort_map(euroc.EUROC_CAM0_K, euroc.EUROC_CAM0_DIST,
+                                   frames[0].shape)
         for i, f in enumerate(frames):
-            kf_store.offer(i, f)
+            if kf_store.wants(i):
+                kf_store.offer(i, euroc.remap(f, *maps))
     res = runners.run_vo_sequence(frames, cfg, gt_poses=gt, batch=args.batch, device=dev)
     n_loops = 0
     if kf_store:

@@ -30,8 +30,9 @@ from epivo_tpu_torch import _kernels
 from epivo_tpu_torch._device import kernel_wanted
 
 # The stages of the VO step in the order the step marks them; the index is
-# the mark's number in ``csrc/stage_mark.cu``. "end" closes the step.
-STAGES = ("frontend", "estimate", "refine", "end")
+# the mark's number in ``csrc/stage_mark.cu``. "undistort" opens only a step
+# given raw frames (``VOConfig.distortion``); "end" closes the step.
+STAGES = ("undistort", "frontend", "estimate", "refine", "end")
 _MARKS = {stage: (k, f"stage_mark_{stage}") for k, stage in enumerate(STAGES)}
 
 # Host seconds and count of each span name, summed while a profiler runs:

@@ -12,6 +12,9 @@ distortion and the test camera monkeypatched into the port's
   on the tiny fixture;
 - ``--mode vo --loop-close`` (not in the reference's test): the keyframe
   store and the loop stage on the VO trajectory; the summary's keys;
+- ``--mode vo`` with a nonzero lens in the fixture's calibration: the
+  raw frames undistorted inside the step give the ``euroc.T`` of the
+  host-undistorted frames through a pinhole step, byte for byte;
 - ``--mode stereo --devices 2 --backend gloo``: two CPU ranks (the rank
   program sets the fixture's calibration, which a spawned process does
   not inherit), the same ATE bound.
@@ -21,6 +24,7 @@ package's CLI on the same tree and holds the files and summary keys equal.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -126,3 +130,33 @@ def test_run_euroc_stereo_cli_two_ranks(tree, tmp_path, monkeypatch):
                        "--devices", "2", "--backend", "gloo")
     assert summary["config"]["devices"] == 2 and summary["frames"] == 4
     assert summary["ate_m"] is not None and summary["ate_m"] < 0.3, summary
+
+
+def test_run_euroc_vo_cli_raw_frames_with_distortion(tree, tmp_path, monkeypatch):
+    """The CLI feeds raw frames and the step undistorts them: its
+    ``euroc.T`` equals that of the host-undistorted frames
+    (``EurocSequence.undistorted_frames``) through the same step with no
+    distortion, with the fixture's lens made nonzero."""
+    from epivo_tpu_torch.pipeline import runners
+    from epivo_tpu_torch.viz import export
+
+    lens = np.array([-0.05, 0.01, 1e-3, -5e-4])
+    for name, value in calibration() + [("EUROC_CAM0_DIST", lens)]:
+        monkeypatch.setattr(teuroc, name, value)
+    out = tmp_path / "out_raw"
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = run_euroc.main(["--root", tree, "--out", str(out), "--device", "cpu"])
+    assert summary["frames"] == 4 and np.isfinite(summary["ate_m"])
+
+    seq = teuroc.EurocSequence(root=tree)
+    stamped = list(seq.undistorted_frames())
+    frames = [f for _, f in stamped]
+    gt_ts, gt_poses = seq.load_gt_cam0()
+    idx = teuroc.associate(np.array([t for t, _ in stamped], np.int64), gt_ts)
+    assert np.all(idx >= 0)
+    cfg = run_euroc.vo_config(frames[0].shape)
+    assert cfg.distortion is not None and cfg.distortion.k1 == -0.05
+    res = runners.run_vo_sequence(frames, dataclasses.replace(cfg, distortion=None),
+                                  gt_poses=gt_poses[idx], batch=8, device="cpu")
+    export.write_poses(str(tmp_path / "host.T"), res.trajectory)
+    assert (out / "euroc.T").read_bytes() == (tmp_path / "host.T").read_bytes()

@@ -14,7 +14,8 @@ on the CPU.
   their host seconds, less the kernel library's compile, and keeps them
   when an entry is evicted.
 - The captured and the eager KLT and ORB steps mark ``frontend``,
-  ``estimate``, ``refine`` and ``end`` in that order; a mark on a CPU
+  ``estimate``, ``refine`` and ``end`` in that order, after ``undistort``
+  where the configuration has a distortion (raw frames); a mark on a CPU
   tensor does nothing, and on the card it launches only for a step that
   runs the kernels, while captured or profiled (the card-only test of the
   mark kernels is in ``tests/test_torch_kernels_cuda.py``).
@@ -35,12 +36,14 @@ from torch.profiler import ProfilerActivity, profile
 from epivo_tpu_torch import _graphs, _kernels, ransac as transac
 from epivo_tpu_torch.datasets import photoreal
 from epivo_tpu_torch.frontend import fast as tfast, orb as torb
-from epivo_tpu_torch.geometry.camera import Pinhole
+from epivo_tpu_torch.geometry.camera import Distortion, Pinhole
 from epivo_tpu_torch.pipeline import config as tconfig, runners, vo
 from epivo_tpu_torch.utils import profiling
 from tests.graph_stub import StubCapture, graph_cpu_calls
 
 HS, WS = 96, 128
+# The marks of a step on pinhole frames, in order.
+STEP_STAGES = ("frontend", "estimate", "refine", "end")
 BATCH_SPANS = ("vo.stack", "vo.upload", "vo.dispatch", "vo.fetch", "vo.collect")
 
 
@@ -187,7 +190,27 @@ def test_step_marks_in_order(pair, monkeypatch, step, path):
         fn((cfg, use_kernel, True, None), src, tgt,
            transac.draw_uniforms(gen, cfg.ransac.hypotheses(), K, (2,)))
     # Every mark carries the step's use_kernel, which decides whether it launches.
-    assert marked == [(s, "cpu", use_kernel) for s in profiling.STAGES]
+    assert marked == [(s, "cpu", use_kernel) for s in STEP_STAGES]
+
+
+@pytest.mark.parametrize("step", ["klt", "orb"])
+def test_raw_frames_step_marks_undistort_first(pair, monkeypatch, step):
+    """A step given raw frames (``distortion`` set) opens with the
+    ``undistort`` mark, captured and eager alike."""
+    marked = []
+    monkeypatch.setattr(profiling, "mark", lambda stage, like, use_kernel=None: marked.append(
+        stage))
+    src, tgt = pair
+    cfg = dataclasses.replace(_config(), distortion=Distortion(-0.28, 0.07, 2e-4, 2e-5))
+    gen = torch.Generator().manual_seed(1)
+    fn = vo.vo_step_batched if step == "klt" else vo.vo_step_orb_batched
+    fn(src, tgt, gen, cfg, use_kernel=False, graph=False)
+    graphed = vo._klt_graphed if step == "klt" else vo._orb_graphed
+    K = (tfast.n_keypoints(HS, WS, cfg.frontend.max_keypoints) if step == "klt"
+         else torb.n_keypoints(HS, WS, cfg.frontend))
+    graphed((cfg, None, True, None), src, tgt,
+            transac.draw_uniforms(gen, cfg.ransac.hypotheses(), K, (2,)))
+    assert marked == 2 * list(profiling.STAGES)
 
 
 def test_mark_on_cpu_loads_nothing(monkeypatch):
@@ -197,7 +220,7 @@ def test_mark_on_cpu_loads_nothing(monkeypatch):
     monkeypatch.setattr(_kernels, "lib", no_library)
     for stage in profiling.STAGES:
         assert profiling.mark(stage, torch.zeros(2)) is None
-    assert profiling.STAGES == ("frontend", "estimate", "refine", "end")
+    assert profiling.STAGES == ("undistort",) + STEP_STAGES
 
 
 class _CardLike:
@@ -225,9 +248,12 @@ def test_mark_launches_when_captured_or_profiled(monkeypatch, use_kernel, captur
     monkeypatch.setattr(_kernels, "stream_of", lambda like: 0)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
     with profile(activities=[ProfilerActivity.CPU]) if profiled else contextlib.nullcontext():
-        for stage in profiling.STAGES:
+        for stage in STEP_STAGES:
             profiling.mark(stage, _CardLike(), use_kernel)
-    assert launched == list(range(len(profiling.STAGES)))[:launches]
+        if launches:  # a raw-frames step's mark, numbered first
+            profiling.mark("undistort", _CardLike(), use_kernel)
+    assert launched == [profiling.STAGES.index(s) for s in STEP_STAGES][:launches] + (
+        [0] if launches else [])
 
 
 def test_build_totals_leave_out_the_library_compile(monkeypatch):

@@ -148,7 +148,10 @@ def test_config_from_reference_round_trip():
     for src in (ref, dataclasses.asdict(ref)):
         out = convert.config_from_reference(src)
         assert isinstance(out, tconfig.VOConfig)
-        assert dataclasses.asdict(out) == dataclasses.asdict(ref)
+        got = dataclasses.asdict(out)
+        # The port's own field (raw frames' lens): the reference's frames are pinhole.
+        assert got.pop("distortion") is None
+        assert got == dataclasses.asdict(ref)
     assert out.ransac.hypotheses() == ref.ransac.hypotheses()
     assert convert.config_from_reference(jconfig.VOConfig()) == tconfig.VOConfig()
     bad = dataclasses.asdict(ref)
